@@ -1,0 +1,380 @@
+"""Lifted STARK prover orchestration (the eager pipeline of
+``miden_tpu.stark.prover``; reference crates/lifted-stark/src/prover/mod.rs).
+
+1.  Order AIRs by ascending trace height (stable on instance index) and bind
+    the statement + shape into Fiat-Shamir.
+2.  Commit main traces: per-trace coset LDE (blowup B, canonical per-height
+    shifts) into one lifted LMCS tree.
+3.  Sample aux randomness, build aux (LogUp) traces, commit aux, send aux
+    values.
+4.  Sample α (constraint fold) and β (AIR accumulation); per AIR evaluate
+    the α-folded constraints on its native quotient coset (a strided view of
+    its committed LDE), divide by Z_H, upsample to D_max, Horner-accumulate
+    with β under cyclic lifting.
+5.  Commit the quotient: interpolate, split into D contiguous degree-<N
+    chunks, LDE all chunks in one batched NTT, commit.
+6.  Sample the OOD point z ∉ H ∪ sK; open [main, aux, quotient] at
+    [z, z·ω_H] through the PCS (DEEP + FRI + queries).
+
+Everything from the traces to the query indices runs on the traces' device
+under a device challenger; the transcript is read back once, then the query
+openings once more.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..field import gl
+from ..field import goldilocks as F
+from ..merkle import lmcs
+from ..ntt import ntt
+from ..transcript.challenger import DuplexChallenger, TranscriptData
+from ..transcript.device_challenger import DeviceChallenger, DeviceProverChannel
+from ..utils.tracing import span
+from . import pcs
+from .air import Air, Expr, Folder, MultiAir, VectorBackend
+from .domains import LiftedDomain, log_quotient_degree
+from .params import PcsParams
+
+
+@dataclass
+class Statement:
+    """Verifier-visible statement: the AIRs + shared public inputs."""
+
+    multi_air: MultiAir
+    publics: list
+    aux_inputs: list = field(default_factory=list)
+
+    def observe(self, challenger, log_heights) -> None:
+        """FS binding of statement + shape (prover/mod.rs:284-292)."""
+        self.multi_air.observe(challenger, self.publics, self.aux_inputs)
+        challenger.observe(len(self.multi_air.airs))
+        for lh in log_heights:
+            challenger.observe(lh)
+
+
+@dataclass
+class Proof:
+    log_heights: list  # instance order
+    data: TranscriptData
+
+    def size_in_bytes(self) -> int:
+        return self.data.size_in_bytes() + len(self.log_heights)
+
+
+@dataclass
+class StarkOutput:
+    digest: list
+    proof: Proof
+
+
+def proof_order(log_heights: list) -> list:
+    """Instance indices sorted by (log_height, instance index) ascending."""
+    return sorted(range(len(log_heights)), key=lambda i: (log_heights[i], i))
+
+
+def _as_device(m, device) -> torch.Tensor:
+    if isinstance(m, torch.Tensor):
+        return m.to(device)
+    return F.to_torch(m, device)
+
+
+def commit_traces(matrices: list, log_blowup: int, hash=lmcs.POSEIDON2_HASH) -> lmcs.LmcsTree:
+    """LDE each trace (int64 tensor (n, w)) on its canonical coset and commit
+    them into one tree."""
+    ldes = []
+    for m in matrices:
+        n, w = m.shape
+        if w == 0:
+            ldes.append(torch.zeros((n << log_blowup, 0), dtype=torch.int64, device=m.device))
+            continue
+        shift = gl.canonical_lde_shift((n.bit_length() - 1) + log_blowup)
+        ldes.append(ntt.coset_lde(m, log_blowup, shift))
+    return lmcs.build_tree(ldes, hash=hash)
+
+
+def _periodic_on_domain(pattern, n, log_d, shift, device) -> torch.Tensor:
+    """Periodic column values over the quotient domain (size n·2^log_d): the
+    period-p pattern's interpolant evaluated at x^{n/p}, tiled."""
+    p = len(pattern)
+    s_eff = gl.exp_power_of_2(shift, (n // p).bit_length() - 1)
+    evals = F.to_torch(np.asarray(pattern, dtype=np.uint64)[:, None], device)
+    small = ntt.coset_lde(evals, log_d, s_eff)  # (p·D, 1)
+    return small[:, 0].repeat(n // p)
+
+
+def evaluate_quotient(
+    air: Air,
+    domain: LiftedDomain,
+    main_lde,
+    aux_lde,
+    log_d: int,
+    alpha,
+    publics,
+    randomness,
+    aux_values,
+    pp_lde=None,
+):
+    """α-folded constraints / Z_H over the native quotient coset (the
+    ``_evaluate_quotient_dev`` formulation of ``miden_tpu``): every
+    constraint is evaluated with torch ops over the whole coset at once.
+    Returns (n·D, 2)."""
+    if pp_lde is not None:
+        raise NotImplementedError("preprocessed columns come with a later slice of the port")
+    device = main_lde.device
+    n = domain.trace_height
+    d = 1 << log_d
+    nd = n * d
+    stride = domain.lde_height // nd
+    shift = domain.lde_shift
+
+    # columns as contiguous rows: (w, nd), and the next-row view rolled by D
+    main_t = main_lde[::stride].T.contiguous()
+    main_next = torch.roll(main_t, -d, dims=1)
+    if aux_lde is not None:
+        aux_t = aux_lde[::stride].T.contiguous()
+        aux_next = torch.roll(aux_t, -d, dims=1)
+
+    backend = VectorBackend((nd,), device)
+
+    def main_fn(col, offset=0):
+        return Expr(backend, "base", (main_next if offset else main_t)[col])
+
+    def aux_fn(col, offset=0):
+        src = aux_next if offset else aux_t
+        return Expr(backend, "ext", F.ext(src[2 * col], src[2 * col + 1]))
+
+    # Z_H(x_i) = shift^n·ω_D^{i mod D} − 1 takes D distinct values
+    pts = pcs.coset_points(nd.bit_length() - 1, shift, device)
+    z_vals = []
+    v = gl.exp_power_of_2(shift, domain.log_trace_height)
+    wd = gl.two_adic_generator(log_d) if log_d else 1
+    for _ in range(d):
+        z_vals.append(gl.sub(v, 1))
+        v = gl.mul(v, wd)
+    z_tile = F.to_torch(np.asarray(z_vals, dtype=np.uint64), device).repeat(n)
+    last_den_raw = F.sub(pts, F.const(gl.inv(domain.trace_generator), device=device))
+    sels = (
+        Expr(backend, "base", F.mul(z_tile, F.inv(F.sub(pts, F.const(1, device=device))))),
+        Expr(backend, "base", F.mul(z_tile, F.inv(last_den_raw))),
+        Expr(backend, "base", last_den_raw),
+    )
+
+    folder = Folder(
+        backend,
+        main_fn=main_fn,
+        aux_fn=aux_fn,
+        periodic=[
+            Expr(backend, "base", _periodic_on_domain(p, n, log_d, shift, device))
+            for p in air.periodic_columns
+        ],
+        publics=[Expr(backend, "base", publics[i]) for i in range(publics.shape[0])],
+        randomness=[Expr(backend, "ext", randomness[i]) for i in range(randomness.shape[0])],
+        aux_values=[Expr(backend, "ext", aux_values[i]) for i in range(aux_values.shape[0])],
+        selectors=sels,
+        alpha=Expr(backend, "ext", alpha),
+    )
+    air.eval(folder)
+    acc = folder.acc
+    assert acc is not None, "AIR produced no constraints"
+    val = acc.val if acc.kind == "ext" else F.ext_from_base(acc.val)
+    inv_z = [gl.inv(zv) for zv in z_vals]
+    inv_tile = F.to_torch(np.asarray(inv_z, dtype=np.uint64), device).repeat(n)
+    return F.ext_mul_base(val.expand(nd, 2), inv_tile)
+
+
+def upsample_evals(evals, shift: int, added_bits: int):
+    """LDE ext evals (natural, shift s) from size L to L·2^added_bits on the
+    same shift (reference quotient.rs:45 upsample)."""
+    coeffs = ntt.coset_interpolate_bitrev(evals, shift)
+    return ntt.evaluate_coeffs_on_coset(coeffs, added_bits, shift)
+
+
+def _accumulate_step(reps: int, acc, q, beta):
+    """acc ← lift(acc)·β + q (Horner across AIRs under cyclic lifting)."""
+    return F.ext_add(F.ext_mul(acc.repeat(reps, 1), beta), q)
+
+
+def _quotient_chunks_dev(acc, domain: LiftedDomain, log_d: int, log_blowup: int):
+    """Split Q (evals over (s_K, N·D)) into D contiguous degree-<N chunks and
+    LDE them on (s_K, N·B) as one (N·B, 2D) matrix. Chunk t is the stride-D
+    slice of the bit-reversed coefficients starting at bitrev_D(t)."""
+    n = domain.trace_height
+    d = 1 << log_d
+    coeffs_br = ntt.coset_interpolate_bitrev(acc, domain.lde_shift).reshape(n, d, 2)
+    br = [int(format(t, f"0{log_d}b")[::-1], 2) if log_d else 0 for t in range(d)]
+    chunk_coeffs = coeffs_br[:, br].reshape(n, 2 * d)  # columns t0.c0, t0.c1, t1.c0, ...
+    return ntt.evaluate_coeffs_on_coset(chunk_coeffs, log_blowup, domain.lde_shift)
+
+
+def commit_quotient(acc, domain: LiftedDomain, log_d: int, log_blowup: int, hash=lmcs.POSEIDON2_HASH):
+    """Commit the D quotient chunks' LDEs as one 2D-column matrix."""
+    return lmcs.build_tree([_quotient_chunks_dev(acc, domain, log_d, log_blowup)], hash=hash)
+
+
+def _ext_stack(scalars: list, device):
+    if not scalars:
+        return torch.zeros((0, 2), dtype=torch.int64, device=device)
+    return torch.stack(scalars)
+
+
+def _ood_valid_flag(domain: LiftedDomain, z):
+    """Device boolean: z ∉ {0} ∪ H ∪ sK (reference domain.rs:539-560),
+    asserted at the final readback instead of rejection-looping."""
+    one = F.ext_const((1, 0), device=z.device)
+
+    def is_one(v):
+        return (v == one).all()
+
+    in_h = is_one(F.ext_exp_power_of_2(z, domain.log_trace_height))
+    zs = F.ext_mul_base(z, F.const(gl.inv(domain.lde_shift), device=z.device))
+    in_k = is_one(F.ext_exp_power_of_2(zs, domain.log_lde_height))
+    return (z != 0).any() & ~in_h & ~in_k
+
+
+def prove(
+    params: PcsParams,
+    statement: Statement,
+    traces: list,
+    challenger: DuplexChallenger,
+    preprocessed=None,
+    device="cuda",
+) -> StarkOutput:
+    """Prove a multi-AIR statement on ``device``. ``traces[i]``: numpy u64
+    or int64 tensor (n_i, width_i), instance order. The challenger must be
+    pre-bound to the protocol parameters."""
+    if preprocessed is not None or any(a.preprocessed_width for a in statement.multi_air.airs):
+        raise NotImplementedError("preprocessed columns come with a later slice of the port")
+    airs = statement.multi_air.airs
+    assert len(airs) == len(traces)
+    traces = [_as_device(t, device) for t in traces]
+    log_blowup = params.log_blowup
+    hash_cfg = params.lmcs_hash()
+    log_heights = [t.shape[0].bit_length() - 1 for t in traces]
+    for t, a in zip(traces, airs):
+        assert tuple(t.shape) == (1 << (t.shape[0].bit_length() - 1), a.width)
+
+    order = proof_order(log_heights)
+    max_domain = LiftedDomain.canonical(max(log_heights), log_blowup)
+    domains = [max_domain.sub_domain(log_heights[i]) for i in order]
+
+    dch = DeviceChallenger.from_host(challenger, device)
+    statement.observe(dch, log_heights)
+    channel = DeviceProverChannel(dch)
+
+    log_ds = [log_quotient_degree(airs[i].constraint_degree()) for i in order]
+    log_d = max(log_ds)
+    assert log_d <= log_blowup, "constraint degree exceeds blowup"
+
+    # 1. Commit main traces (proof order).
+    with span("commit to main traces"):
+        main_tree = commit_traces([traces[i] for i in order], log_blowup, hash=hash_cfg)
+    channel.send_commitment(main_tree.root_dev())
+
+    # 2. Randomness → aux traces (instance order) → external assertions →
+    #    commit (proof order) → send aux values.
+    max_rand = max((a.num_randomness for a in airs), default=0)
+    randomness = [channel.sample_ext() for _ in range(max_rand)]
+    with span("build aux traces"):
+        # device tensors: aux (n, 2·aux_width) and aux values (num_aux_values, 2)
+        aux_pairs = [
+            a.build_aux_trace(t, statement.publics, statement.aux_inputs, randomness[: a.num_randomness])
+            for a, t in zip(airs, traces)
+        ]
+    with span("commit to aux traces"):
+        aux_tree = commit_traces([aux_pairs[i][0] for i in order], log_blowup, hash=hash_cfg)
+    channel.send_commitment(aux_tree.root_dev())
+    aux_values = [aux_pairs[i][1] for i in order]
+    for vals in aux_values:
+        channel.send_ext_slice(vals)
+
+    # 3. Constraint fold / accumulation challenges.
+    alpha = channel.sample_ext()
+    beta = channel.sample_ext()
+    pub_d = F.to_torch(np.asarray([int(p) % gl.P for p in statement.publics], dtype=np.uint64), device)
+    rand_d = _ext_stack(randomness, device)
+
+    # 4. Per-AIR quotient evaluation + Horner accumulation under lifting.
+    acc = None
+    for k, i in enumerate(order):
+        with span("evaluate constraints", instance=k):
+            air = airs[i]
+            dom = domains[k]
+            q = evaluate_quotient(
+                air,
+                dom,
+                main_tree.matrices[k],
+                aux_tree.matrices[k] if air.aux_width else None,
+                log_ds[k],
+                alpha,
+                pub_d,
+                rand_d[: air.num_randomness],
+                aux_values[k],
+            )
+            if log_ds[k] < log_d:
+                q = upsample_evals(q, dom.lde_shift, log_d - log_ds[k])
+            if acc is None:
+                acc = q
+            else:
+                acc = _accumulate_step((dom.trace_height << log_d) // acc.shape[0], acc, q, beta)
+
+    # 5. Commit quotient.
+    with span("commit to quotient poly chunks"):
+        quotient_tree = commit_quotient(acc, max_domain, log_d, log_blowup, hash=hash_cfg)
+    channel.send_commitment(quotient_tree.root_dev())
+
+    # 6. OOD point + PCS opening at [z, z·ω_H].
+    z = channel.sample_ext()
+    channel.check("ood point outside domains", _ood_valid_flag(max_domain, z))
+    z_next = F.ext_mul_base(z, F.const(max_domain.trace_generator, device=device))
+    input_trees = [main_tree, aux_tree, quotient_tree]
+    with span("open"):
+        fri_trees, idx_arr = pcs.open_with_channel(params, max_domain, input_trees, [z, z_next], channel)
+
+    # THE blocking readback: transcript + query indices in one transfer.
+    with span("transcript readback"):
+        idx_host = channel.materialize(extra=idx_arr)
+    mask = (1 << max_domain.log_lde_height) - 1
+    idx_raw = [int(v) & mask for v in idx_host]
+    return _query_phase_and_finalize(
+        params, max_domain, input_trees, fri_trees, idx_raw, channel, log_heights, idx_arr
+    )
+
+
+def _query_phase_and_finalize(
+    params, max_domain, input_trees, fri_trees, idx_raw, channel, log_heights, idx_arr
+) -> StarkOutput:
+    """Open every committed tree at the query indices: one device gather per
+    tree, one readback, then host-side hint assembly."""
+    with span("query phase"):
+        mask = (1 << max_domain.log_lde_height) - 1
+        idx_dev = idx_arr & mask
+        flats, metas, raws = [], [], []
+        for tree in input_trees:
+            flat, meta = lmcs.gather_query_data(tree, idx_dev)
+            flats.append(flat)
+            metas.append(meta)
+            raws.append(idx_raw)
+        size = max_domain.lde_height
+        cur_idx, cur_raw = idx_dev, idx_raw
+        for tree in fri_trees:
+            size >>= params.log_folding_arity
+            cur_idx = cur_idx & (size - 1)
+            cur_raw = [d & (size - 1) for d in cur_raw]
+            flat, meta = lmcs.gather_query_data(tree, cur_idx)
+            flats.append(flat)
+            metas.append(meta)
+            raws.append(cur_raw)
+        host_vals = F.to_numpy(torch.cat(flats))  # second (final) readback
+        off = 0
+        for flat, meta, raw in zip(flats, metas, raws):
+            n = flat.shape[0]
+            lmcs.emit_opening_hints(channel, host_vals[off : off + n], meta, raw)
+            off += n
+
+    digest, data = channel.finalize()
+    return StarkOutput(digest=digest, proof=Proof(log_heights=log_heights, data=data))
