@@ -7,18 +7,20 @@ Phases, one line each (plus details):
 
 1. build the CUDA kernels from miden_tpu_torch/csrc (one nvcc per source,
    in parallel);
-2. hold each kernel (K1 ntt_col_transform, K2 ntt_transpose_twiddle, K3
-   poseidon2_permute) against its plain torch twin on the card, exact
-   equality, on inputs from a seeded numpy generator;
+2. hold each kernel entry (K1 ntt_col_transform, K2 ntt_transpose_twiddle,
+   K3 poseidon2_permute, poseidon2_absorb_rows, poseidon2_compress_rows)
+   against its plain torch twin on the card, exact equality, on inputs from
+   a seeded numpy generator;
 3. prove miden_shaped_statement(10) at MIDEN_PARAMS on the card and on the
    CPU: the proof bytes must be equal and the port's verifier must accept;
 4. prove miden_shaped_statement(18) at MIDEN_PARAMS on the card (core
    2^18 x 51 with 8 EF aux columns, chiplets 2^16 x 22, perm 2^14 x 16, LDE
    2^21 rows): one warm-up, three timed proves (CUDA events), the kernel
-   launch counts of one prove, the span breakdown of one traced prove, peak
-   memory, and the verifier's verdict;
-5. time each kernel, its plain twin and its bound at the shapes phase 4
-   launched it with;
+   launch counts of one prove (per entry, and K3's permutations per
+   shape), the span breakdown of one traced prove, peak memory, and the
+   verifier's verdict;
+5. hold each kernel against its plain twin and time it, with its bound, at
+   every shape phase 4 launched it with (K1 printed at each shape);
 6. the JSON line of kernels, the card's name and power limit, and the result
    line ``{"ok": true, "device": {...}}`` last.
 
@@ -39,15 +41,6 @@ import numpy as np
 
 SEED = [0x6D69, 0x6465, 0x6E2D, 0x7470]  # the bench's domain separator
 SMALL_LOG, FULL_LOG = 10, 18
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-#: general Goldilocks multiplies per Poseidon2 permutation: 8 external rounds
-#: x 12 S-boxes x 4, plus 22 internal rounds x 4 (the lane-0 S-box). The
-#: internal diagonal needs none: MAT_DIAG's entries are ±2^k, ±3 and ±2^-k,
-#: products by shifts and adds
-MULS_PER_PERM = 8 * 12 * 4 + 22 * 4
-#: 32-bit multiplies per Goldilocks multiply: the 64x64 -> 128-bit product
-#: is four 32x32 -> 64 partial products, each a low and a high half
-INT32_MULS_PER_MUL = 8
 
 
 def log(msg: str) -> None:
@@ -105,18 +98,6 @@ def device_busy(torch, fn) -> str:
             f"({100 * total / wall:.1f} %); top: {top}")
 
 
-def time_ms(torch, fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -125,6 +106,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from miden_tpu_torch.bench_airs import miden_shaped_statement
+    from miden_tpu_torch.bench_kernels import HBM_BYTES_PER_S, bench_case, bound_ms, time_ms
     from miden_tpu_torch.field import gl
     from miden_tpu_torch.field import goldilocks as F
     from miden_tpu_torch.hash import poseidon2
@@ -143,6 +125,10 @@ def main() -> int:
                                   "miden_tpu/ntt/ntt_pallas.py:267"),
         "poseidon2_permute": (poseidon2.PERMUTE_KERNEL, "miden_tpu_torch/csrc/poseidon2.cu",
                               "miden_tpu/hash/poseidon2_pallas.py:156"),
+        "poseidon2_absorb_rows": (poseidon2.ABSORB_KERNEL, "miden_tpu_torch/csrc/poseidon2.cu",
+                                  "miden_tpu/hash/poseidon2_pallas.py:156"),
+        "poseidon2_compress_rows": (poseidon2.COMPRESS_KERNEL, "miden_tpu_torch/csrc/poseidon2.cu",
+                                    "miden_tpu/hash/poseidon2_pallas.py:156"),
     }
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
@@ -171,7 +157,17 @@ def main() -> int:
             errs["poseidon2_permute"], max_abs_err(poseidon2.permute_kernel(s), poseidon2.permute_plain(s))
         )
         checked["poseidon2_permute"] += 1
-    for log_n in range(4, 11):
+    for max_h, h, w in ((1, 1, 3), (256, 64, 51), (1 << 14, 1 << 12, 22), (1 << 12, 1 << 12, 130)):
+        s, m = rand((12, max_h)), rand((h, w))
+        err = max_abs_err(poseidon2.absorb_rows_kernel(s, m), poseidon2.absorb_rows_plain(s, m))
+        errs["poseidon2_absorb_rows"] = max(errs["poseidon2_absorb_rows"], err)
+        checked["poseidon2_absorb_rows"] += 1
+    for m in (1, 1000, 1 << 15):
+        cur = rand((2 * m, 4))
+        err = max_abs_err(poseidon2.compress_rows_kernel(cur), poseidon2.compress_rows_plain(cur))
+        errs["poseidon2_compress_rows"] = max(errs["poseidon2_compress_rows"], err)
+        checked["poseidon2_compress_rows"] += 1
+    for log_n in range(1, ntt.MAX_LOG_SINGLE + 1):
         for width in (1, 3, 51, 130):
             x = rand((1 << log_n, width))
             for dit in (False, True):
@@ -263,6 +259,9 @@ def main() -> int:
         f"{k} {v[0]:.4f} s" for k, v in rec.totals.items()
     ))
     log(f"  launches per proof: {launches}")
+    log("  poseidon2_permute launches per proof by n: " + ", ".join(
+        f"{key[0]}: {count}" for key, count in sorted(shapes["poseidon2_permute"].items())
+    ))
     log(f"  profiled prove: {busy}")
     log(f"phase 4 full proof 2^{FULL_LOG} MIDEN_PARAMS: median {statistics.median(times):.4f} s "
         f"(runs {', '.join(f'{t:.4f}' for t in times)}; warm-up {warm_s:.3f} s), "
@@ -277,10 +276,14 @@ def main() -> int:
     for name, (kern, source, replaces) in kernels.items():
         total_ms, top = 0.0, None
         for key, count in sorted(shapes[name].items()):
-            bench = _bench_case(torch, ntt, poseidon2, F, rand, name, key)
+            bench = bench_case(ntt, poseidon2, rand, name, key)
             errs[name] = max(errs[name], max_abs_err(bench["kernel"](), bench["plain"]()))
-            ms = time_ms(torch, bench["kernel"], bench["reps"])
+            ms = time_ms(bench["kernel"], bench["reps"])
             total_ms += ms * count
+            if name == "ntt_col_transform":
+                k_bound = bound_ms(bench, mul_rate)
+                log(f"    {name} at {key}: {ms:.4f} ms/launch x {count}, bound {k_bound:.4f} ms "
+                    f"({100 * k_bound / ms:.1f} % of bound)")
             if top is None or bench["elems"] > top[1]["elems"]:
                 top = (key, bench, ms, count)
         log(f"  {name}: kernel == plain at all {len(shapes[name])} shapes of the proof, "
@@ -288,21 +291,21 @@ def main() -> int:
         if errs[name]:
             raise AssertionError(f"{name} disagrees with its plain version at the proof's shapes")
         key, bench, ms, count = top
-        plain_ms = time_ms(torch, bench["plain"], 2)
-        bound_ms = max(bench["bytes"] / HBM_BYTES_PER_S, bench["ops"] / mul_rate) * 1e3
+        plain_ms = time_ms(bench["plain"], 2)
+        b_ms = bound_ms(bench, mul_rate)
         row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": errs[name],
-            "ms": round(ms, 6), "plain_ms": round(plain_ms, 6), "bound_ms": round(bound_ms, 6),
+            "ms": round(ms, 6), "plain_ms": round(plain_ms, 6), "bound_ms": round(b_ms, 6),
             "bound_by": "bytes" if bench["bytes"] / HBM_BYTES_PER_S >= bench["ops"] / mul_rate
             else "operations",
             "library_ms": None, "shape": list(key), "launches_at_shape": count,
             "ms_per_proof": round(total_ms, 6),
         }
         if "copy" in bench:  # the bare transpose copy, a yardstick for K2
-            row["copy_ms"] = round(time_ms(torch, bench["copy"], bench["reps"]), 6)
+            row["copy_ms"] = round(time_ms(bench["copy"], bench["reps"]), 6)
         rows.append(row)
-        log(f"  {name} at {key}: {ms:.4f} ms/launch (plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        log(f"  {name} at {key}: {ms:.4f} ms/launch (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
             f"by {row['bound_by']}); {launches[name]} launches/proof over {len(shapes[name])} shapes, "
             f"{total_ms:.3f} ms/proof")
     log(f"phase 5 kernels vs plain and timings at the proof's shapes on {card}")
@@ -314,38 +317,6 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))
     return 0
-
-
-def _bench_case(torch, ntt, poseidon2, F, rand, name, key) -> dict:
-    """Inputs, kernel call, plain call, and the bytes/operations of one
-    launch of ``name`` at the recorded shape ``key``."""
-    if name == "poseidon2_permute":
-        (n,) = key
-        s = rand((12, n))
-        return {
-            "kernel": lambda: poseidon2.permute_kernel(s), "plain": lambda: poseidon2.permute_plain(s),
-            "elems": 12 * n, "bytes": 2 * 12 * n * 8,
-            "ops": MULS_PER_PERM * INT32_MULS_PER_MUL * n, "reps": 20 if n > 4096 else 200,
-        }
-    if name == "ntt_col_transform":
-        log_n, m, dit, inverse = key
-        x = rand((1 << log_n, m))
-        return {
-            "kernel": lambda: ntt.col_transform_kernel(x, inverse, dit),
-            "plain": lambda: ntt.transform_plain(x, inverse, dit),
-            "elems": x.numel(), "bytes": (2 * x.numel() + (1 << log_n) - 1) * 8,
-            "ops": (x.numel() // 2) * log_n * INT32_MULS_PER_MUL, "reps": 20 if x.numel() > 1 << 16 else 200,
-        }
-    a, b, w, mode = key
-    x = rand((a, b, w))
-    tw = rand((a, b) if mode == 1 else (b, a)) if mode else None
-    return {
-        "kernel": lambda: ntt.transpose_twiddle_kernel(x, tw, mode),
-        "plain": lambda: ntt.transpose_twiddle_plain(x, tw, mode),
-        "copy": lambda: x.transpose(0, 1).contiguous(),
-        "elems": x.numel(), "bytes": (2 * x.numel() + (a * b if mode else 0)) * 8,
-        "ops": x.numel() * INT32_MULS_PER_MUL if mode else 0, "reps": 20 if x.numel() > 1 << 16 else 200,
-    }
 
 
 if __name__ == "__main__":

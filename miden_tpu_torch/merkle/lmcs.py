@@ -9,8 +9,10 @@ natural domain order: domain index ``d`` reads row ``d mod h``.
   at ``d mod h``, each row zero-padded to the rate (alignment 8). The sponge
   streams rate-8 column blocks of each matrix in turn
   (:func:`_sponge_leaves_incremental`); the lifted, padded concatenation of
-  all matrices is never built.
-- Inner layers: truncated-permutation 2-to-1 compression of neighbours.
+  all matrices is never built. On the card each matrix is one launch of
+  K3's ``poseidon2_absorb_rows``.
+- Inner layers: truncated-permutation 2-to-1 compression of neighbours, one
+  ``poseidon2_compress_rows`` launch per layer on the card.
 - Openings: the full sibling path per query is gathered on the device
   (:func:`gather_query_data`) and the deduplicated witness of
   :func:`sibling_schedule` is selected on the host
@@ -37,18 +39,18 @@ ALIGNMENT = 8  # sponge rate; rows are zero-padded to a multiple of this
 
 @dataclass(frozen=True)
 class LmcsHash:
-    """Hash configuration: the device compression plus host twins for the
-    verifier. Leaves absorb through the batched Poseidon2 permutation."""
+    """Hash configuration: the device compression of a layer plus host
+    twins for the verifier. Leaves absorb through Poseidon2's row sponge."""
 
     name: str
-    compress_pairs: object  # (m, 4) × (m, 4) -> (m, 4)
+    compress_rows: object  # (2m, 4) -> (m, 4): rows 2i, 2i + 1 -> row i
     host_hash_elements: object  # list[int] -> [4]
     host_compress: object  # ([4], [4]) -> [4]
 
 
 POSEIDON2_HASH = LmcsHash(
     "poseidon2",
-    poseidon2.compress_pairs,
+    poseidon2.compress_rows,
     poseidon2_host.hash_elements,
     poseidon2_host.compress,
 )
@@ -105,21 +107,10 @@ def _sponge_leaves_incremental(matrices: list, heights: list, max_h: int) -> tor
     each matrix's rate-8 column blocks in turn, each block lifted to max_h
     rows; the ragged tail block is zero-padded. Equal to hashing the lifted,
     padded concatenation since every aligned width is a multiple of the rate."""
-    device = matrices[0].device
-    state = torch.zeros((12, max_h), dtype=torch.int64, device=device)
-    for m, h in zip(matrices, heights):
-        w = m.shape[1]
-        reps = max_h // h
-        for c0 in range(0, w, ALIGNMENT):
-            chunk = m[:, c0 : c0 + ALIGNMENT].T  # (≤ 8, h)
-            if chunk.shape[0] < ALIGNMENT:
-                pad = torch.zeros(
-                    (ALIGNMENT - chunk.shape[0], h), dtype=torch.int64, device=device
-                )
-                chunk = torch.cat([chunk, pad])
-            if reps > 1:
-                chunk = chunk.repeat(1, reps)
-            state = poseidon2.permute(torch.cat([chunk, state[8:]]))
+    assert all(m.shape[0] == h for m, h in zip(matrices, heights))
+    state = torch.zeros((12, max_h), dtype=torch.int64, device=matrices[0].device)
+    for m in matrices:
+        state = poseidon2.absorb_rows(state, m)
     return state[:4].T.contiguous()
 
 
@@ -127,7 +118,7 @@ def _fold_layers(h: LmcsHash, leaves: torch.Tensor) -> list:
     layers = [leaves]
     cur = leaves
     while cur.shape[0] > 1:
-        cur = h.compress_pairs(cur[0::2], cur[1::2])
+        cur = h.compress_rows(cur)
         layers.append(cur)
     return layers
 

@@ -13,8 +13,11 @@ Same conventions as ``miden_tpu.ntt.ntt``:
 On a CUDA tensor the transforms run the four-step decomposition
 (:func:`four_step_dif` / :func:`four_step_dit`) over kernel K1
 (``ntt_col_transform``: a whole sub-transform of up to 2^MAX_LOG_SINGLE rows
-in shared memory) and kernel K2 (``ntt_transpose_twiddle``: outer-twiddle
-multiply fused with the transpose), both in ``csrc/ntt.cu``. On a CPU tensor
+in one launch: column tiles staged through shared memory by cp.async, the
+next in flight while the current one is transformed, groups of up to four
+stages in registers between passes over the tile) and kernel K2
+(``ntt_transpose_twiddle``: outer-twiddle multiply fused with the
+transpose), both in ``csrc/ntt.cu``. On a CPU tensor
 they run the plain stage-by-stage butterflies. The decomposition is plain
 Python over :func:`col_transform` and :func:`transpose_twiddle`, each of
 which takes its kernel on CUDA and its plain version on the CPU, so the
@@ -29,12 +32,12 @@ from ..field import gl
 from ..field import goldilocks as F
 from ..utils import cuda
 
-MAX_LOG_SINGLE = 12  # largest sub-transform K1 does in one launch (128 KB tile)
+MAX_LOG_SINGLE = 12  # largest sub-transform K1 does in one launch
 
 #: kernel K1 (replaces miden_tpu/ntt/ntt_pallas.py `_col_transform`)
 COL_KERNEL = cuda.Kernel(
     "ntt", "ntt_col_transform",
-    [cuda.P, cuda.P, cuda.P, cuda.I32, cuda.I64, cuda.I32, cuda.I32, cuda.P],
+    [cuda.P, cuda.P, cuda.P, cuda.I32, cuda.I64, cuda.I32, cuda.P],
 )
 #: kernel K2 (the four-step twiddle multiply + transposes of
 #: miden_tpu/ntt/ntt_pallas.py `dft_dif` / `dft_dit`)
@@ -155,11 +158,9 @@ def col_transform_kernel(x: torch.Tensor, inverse: bool, dit: bool) -> torch.Ten
     if log_n == 0 or m_cols == 0:
         return x.clone()
     tw = stage_twiddles(log_n, inverse, x.device)
-    # columns per block: a 64 KB tile (128 KB at n = 2^12), 4 to 64 columns
-    log_tile = max(2, min(6, 13 - log_n))
     out = torch.empty_like(x)
     COL_KERNEL.launch(
-        x.data_ptr(), out.data_ptr(), tw.data_ptr(), log_n, m_cols, log_tile, int(dit),
+        x.data_ptr(), out.data_ptr(), tw.data_ptr(), log_n, m_cols, int(dit),
         key=(log_n, m_cols, dit, inverse),
     )
     return out

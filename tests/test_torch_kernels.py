@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain torch twins, on the card.
 
 K1 (``ntt_col_transform``), K2 (``ntt_transpose_twiddle`` inside the
-four-step decomposition) and K3 (``poseidon2_permute``) are compared with the plain
-versions on the same CUDA inputs; Goldilocks arithmetic is exact, so every
+four-step decomposition) and K3's three entries (``poseidon2_permute``,
+``poseidon2_absorb_rows``, ``poseidon2_compress_rows``) are compared with
+the plain versions on the same CUDA inputs; Goldilocks arithmetic is exact, so every
 comparison is exact equality. Every test skips without a card. On the card:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
@@ -18,6 +19,7 @@ import torch
 from miden_tpu_torch.field import gl
 from miden_tpu_torch.field import goldilocks as F
 from miden_tpu_torch.hash import poseidon2, poseidon2_host
+from miden_tpu_torch.merkle import lmcs
 from miden_tpu_torch.ntt import ntt
 from miden_tpu_torch.utils import cuda
 
@@ -38,7 +40,7 @@ def _equal(a, b):
     return torch.equal(a.cpu(), b.cpu())
 
 
-@pytest.mark.parametrize("n", [1, 1000, 1 << 16])
+@pytest.mark.parametrize("n", [1, 1000, 1 << 16, 129])
 def test_poseidon2_kernel_matches_plain(n):
     rng = np.random.default_rng(n)
     state = _rand(rng, (12, n))
@@ -53,8 +55,58 @@ def test_poseidon2_kernel_matches_plain(n):
     )
 
 
+@pytest.mark.parametrize("w", [1, 7, 8, 9, 22, 51, 64, 130])
+@pytest.mark.parametrize("h,max_h", [(1, 1), (1, 8), (4, 4), (64, 256), (256, 1024), (1024, 1024)])
+def test_absorb_rows_kernel_matches_plain(w, h, max_h):
+    rng = np.random.default_rng(w * 7919 + h * 31 + max_h)
+    state, m = _rand(rng, (12, max_h)), _rand(rng, (h, w))
+    before = poseidon2.ABSORB_KERNEL.launches
+    got = poseidon2.absorb_rows(state, m)
+    torch.cuda.synchronize()
+    assert poseidon2.ABSORB_KERNEL.launches == before + 1
+    assert _equal(got, poseidon2.absorb_rows_plain(state, m))
+
+
+@pytest.mark.parametrize("w", [3, 51])
+def test_absorb_rows_kernel_unaligned_matrix(w):
+    """A row-major view that starts off a 16-byte boundary takes the 8-byte
+    copies."""
+    rng = np.random.default_rng(w)
+    big = _rand(rng, (257, w))
+    m = big[1:]
+    assert m.data_ptr() % 16 == 8 and m.is_contiguous()
+    state = _rand(rng, (12, 512))
+    assert _equal(poseidon2.absorb_rows_kernel(state, m), poseidon2.absorb_rows_plain(state, m))
+
+
+@pytest.mark.parametrize("m", [1, 127, 1000, 1 << 14])
+def test_compress_rows_kernel_matches_plain(m):
+    cur = _rand(np.random.default_rng(m), (2 * m, 4))
+    before = poseidon2.COMPRESS_KERNEL.launches
+    got = poseidon2.compress_rows(cur)
+    torch.cuda.synchronize()
+    assert poseidon2.COMPRESS_KERNEL.launches == before + 1
+    assert _equal(got, poseidon2.compress_rows_plain(cur))
+    left, right = cur[0::2].contiguous(), cur[1::2].contiguous()
+    assert _equal(poseidon2.compress_pairs(left, right), got)
+
+
+def test_lmcs_tree_on_card_goes_through_the_row_kernels():
+    rng = np.random.default_rng(5)
+    shapes = [(1024, 51), (256, 22), (64, 16), (1024, 0)]
+    mats = [_rand(rng, s) for s in shapes]
+    counts = [k.launches for k in (poseidon2.PERMUTE_KERNEL, poseidon2.ABSORB_KERNEL, poseidon2.COMPRESS_KERNEL)]
+    tree = lmcs.build_tree(mats)
+    torch.cuda.synchronize()
+    after = [k.launches for k in (poseidon2.PERMUTE_KERNEL, poseidon2.ABSORB_KERNEL, poseidon2.COMPRESS_KERNEL)]
+    assert [a - b for a, b in zip(after, counts)] == [0, 3, 10]
+    ref = lmcs.build_tree([m.cpu() for m in mats])
+    for mine, theirs in zip(tree.layers, ref.layers):
+        assert torch.equal(mine.cpu(), theirs)
+
+
 @pytest.mark.parametrize("log_n", range(1, ntt.MAX_LOG_SINGLE + 1))
-@pytest.mark.parametrize("width", [1, 3, 51, 130])
+@pytest.mark.parametrize("width", [1, 3, 51, 130, 17, 300])
 def test_col_transform_kernel_matches_plain(log_n, width):
     rng = np.random.default_rng(log_n * 1000 + width)
     x = _rand(rng, (1 << log_n, width))
@@ -62,6 +114,20 @@ def test_col_transform_kernel_matches_plain(log_n, width):
         for inverse in (False, True):
             got = ntt.col_transform_kernel(x, inverse, dit)
             assert _equal(got, ntt.transform_plain(x, inverse, dit)), (dit, inverse)
+
+
+@pytest.mark.parametrize("log_n", [10, 11])
+@pytest.mark.parametrize("width", [4000, 5001])
+def test_col_transform_kernel_unaligned_input(log_n, width):
+    """A row-major view that starts off a 16-byte boundary (and an odd width)
+    takes K1's 8-byte copies; more tiles than SMs keep the ring busy."""
+    rng = np.random.default_rng(log_n + width)
+    big = _rand(rng, ((1 << log_n) * width + 1,))
+    x = big[1:].reshape(1 << log_n, width)
+    assert x.data_ptr() % 16 == 8 and x.is_contiguous()
+    for dit in (False, True):
+        got = ntt.col_transform_kernel(x, False, dit)
+        assert _equal(got, ntt.transform_plain(x, False, dit)), dit
 
 
 @pytest.mark.parametrize("mode", [0, 1, 2])
@@ -83,6 +149,17 @@ def test_four_step_on_card_matches_plain(log_n):
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
+    with pytest.raises(ValueError):
+        poseidon2.absorb_rows_kernel(
+            torch.zeros((12, 8), dtype=torch.int64, device="cuda"),
+            torch.zeros((3, 2), dtype=torch.int64, device="cuda"),
+        )  # height not a power of two
+    with pytest.raises(ValueError):
+        poseidon2.compress_rows_kernel(torch.zeros((3, 4), dtype=torch.int64, device="cuda"))
+    with pytest.raises(ValueError):
+        poseidon2.compress_rows_kernel(
+            torch.zeros(17, dtype=torch.int64, device="cuda")[1:].reshape(4, 4)
+        )  # 8 bytes off a 16-byte boundary
     with pytest.raises(ValueError):
         poseidon2.permute_kernel(torch.zeros((12, 4), dtype=torch.int64))  # CPU tensor
     with pytest.raises(ValueError):

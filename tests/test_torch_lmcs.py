@@ -15,6 +15,7 @@ from miden_tpu.merkle import lmcs as JL
 from miden_tpu.transcript import challenger as JC
 from miden_tpu_torch.field import gl
 from miden_tpu_torch.field import goldilocks as F
+from miden_tpu_torch.hash import poseidon2 as P2
 from miden_tpu_torch.merkle import lmcs as L
 from miden_tpu_torch.transcript import challenger as C
 
@@ -40,6 +41,30 @@ def test_tree_layers_match_jax(shapes):
     for mine, theirs in zip(tree.layers, jtree.layers):
         assert (F.to_numpy(mine) == fp_to_u64(theirs)).all()
     assert (tree.root() == jtree.root()).all()
+
+
+@pytest.mark.parametrize("width", [1, 7, 8, 9, 22, 51])
+@pytest.mark.parametrize("h,max_h", [(16, 16), (4, 16), (1, 8)])
+def test_absorb_rows_matches_jax_sponge(width, h, max_h):
+    """One matrix through the port's row sponge (lifted when h < max_h, the
+    ragged tail block zero-padded) against miden_tpu's incremental sponge."""
+    (mat,) = _mats(width * 100 + h, [(h, width)])
+    state = torch.zeros((12, max_h), dtype=torch.int64)
+    got = F.to_numpy(P2.absorb_rows(state, F.to_torch(mat, "cpu"))[:4].T)
+    want = fp_to_u64(JL._sponge_leaves_incremental([fp_from_u64(mat)], [h], max_h))
+    assert (got == want).all()
+
+
+def test_absorb_rows_continues_a_sponge():
+    """Absorbing matrices one after another is the sponge over their lifted
+    concatenation, as miden_tpu's leaves are."""
+    shapes = [(32, 51), (8, 22), (2, 16), (32, 3)]
+    mats = _mats(11, shapes)
+    state = torch.zeros((12, 32), dtype=torch.int64)
+    for m in mats:
+        state = P2.absorb_rows(state, F.to_torch(m, "cpu"))
+    want = JL._sponge_leaves_incremental([fp_from_u64(m) for m in mats], [h for h, _ in shapes], 32)
+    assert (F.to_numpy(state[:4].T) == fp_to_u64(want)).all()
 
 
 def test_sibling_schedule_matches_jax():

@@ -67,3 +67,25 @@ def test_compress_pairs_matches_jax(n):
     assert [int(v) for v in got[0]] == poseidon2_host.compress(
         [int(v) for v in left[0]], [int(v) for v in right[0]]
     )
+
+
+@pytest.mark.parametrize("m", [1, 2, 37, 128])
+def test_compress_rows_matches_jax(m):
+    cur = _rand(100 + m, (2 * m, 4))
+    got = F.to_numpy(P2.compress_rows(F.to_torch(cur, "cpu")))
+    assert got.shape == (m, 4)
+    want = fp_to_u64(J.compress_pairs_jit(fp_from_u64(cur[0::2]), fp_from_u64(cur[1::2])))
+    assert (got == want).all()
+    assert (F.to_numpy(P2.compress_rows_plain(F.to_torch(cur, "cpu"))) == got).all()
+
+
+@pytest.mark.parametrize("n_blocks", [1, 2, 5])
+def test_absorb_rows_is_the_block_sponge(n_blocks):
+    """absorb_rows over an (n, 8·b) matrix from the zero state is hash_blocks
+    over its (n, b, 8) blocks, and the host sponge of each row."""
+    rows = _rand(200 + n_blocks, (9, 8 * n_blocks))
+    state = F.to_torch(np.zeros((12, 9), dtype=np.uint64), "cpu")
+    got = F.to_numpy(P2.absorb_rows(state, F.to_torch(rows, "cpu"))[:4].T)
+    want = fp_to_u64(J.hash_blocks_jit(fp_from_u64(rows.reshape(9, n_blocks, 8))))
+    assert (got == want).all()
+    assert [int(v) for v in got[3]] == poseidon2_host.hash_elements([int(v) for v in rows[3]])
