@@ -1,4 +1,4 @@
-"""Poseidon2 hashing: batched torch permutation (kernel K3 on the card) and
-the exact host twin."""
+"""Hashing: batched torch Poseidon2 (kernel K3 on the card) and the exact
+host twins (Poseidon2, and the BLAKE3 / Keccak-256 the VM host layer uses)."""
 
-from . import constants, poseidon2, poseidon2_host  # noqa: F401
+from . import blake3_host, constants, keccak_host, poseidon2, poseidon2_host  # noqa: F401

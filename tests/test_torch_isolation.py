@@ -28,6 +28,10 @@ def _sources():
         "from miden_tpu_torch.stark import prove, verify",
         "from miden_tpu_torch.bench_airs import miden_shaped_statement",
         "import miden_tpu_torch.stark.proof_io, miden_tpu_torch.transcript.device_challenger",
+        "from miden_tpu_torch.vm.prove import VmProof, prove_program, verify_program, protocol_seed",
+        "from miden_tpu_torch.vm import assemble, execute; from miden_tpu_torch.vm.trace import execute_and_trace",
+        "from miden_tpu_torch.vm.constraints.aux_numeric import build_device_aux",
+        "from miden_tpu_torch.merkle import MerkleStore, MerkleTree, Smt, Mmr; import miden_tpu_torch.native",
     ],
 )
 def test_import_pulls_in_neither_jax_nor_miden_tpu(stmt):
