@@ -375,6 +375,11 @@ class Folder:
                 self._fold(Expr(self.backend, e.kind, v))
             return
         val = e.val if e.kind == "ext" else F.ext_from_base(e.val)
+        if val.ndim <= len(self.backend.shape) + 1:
+            # one constraint handed to a family sink (the keccak AIRs do):
+            # without a group axis its leading axis is the domain, not G
+            self._fold(Expr(self.backend, "ext", val))
+            return
         g = val.shape[0]
         self.num_constraints += g
         if self._alpha_pow_arr is None or self._alpha_pow_arr.shape[0] < g + 1:

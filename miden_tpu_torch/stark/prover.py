@@ -295,10 +295,12 @@ def prove(
     randomness = [channel.sample_ext() for _ in range(max_rand)]
     with span("build aux traces"):
         # device tensors: aux (n, 2·aux_width) and aux values (num_aux_values, 2)
-        aux_pairs = [
-            a.build_aux_trace(t, statement.publics, statement.aux_inputs, randomness[: a.num_randomness])
-            for a, t in zip(airs, traces)
-        ]
+        aux_pairs = []
+        for a, t in zip(airs, traces):
+            with span("aux trace of one AIR", air=type(a).__name__):
+                aux_pairs.append(
+                    a.build_aux_trace(t, statement.publics, statement.aux_inputs, randomness[: a.num_randomness])
+                )
     with span("commit to aux traces"):
         aux_tree = commit_traces([aux_pairs[i][0] for i in order], log_blowup, hash=hash_cfg)
     channel.send_commitment(aux_tree.root_dev())
@@ -315,7 +317,7 @@ def prove(
     # 4. Per-AIR quotient evaluation + Horner accumulation under lifting.
     acc = None
     for k, i in enumerate(order):
-        with span("evaluate constraints", instance=k):
+        with span("evaluate constraints", instance=k, air=type(airs[i]).__name__):
             air = airs[i]
             dom = domains[k]
             q = evaluate_quotient(

@@ -21,10 +21,13 @@ _recorders: list = []
 
 class Recorder:
     """Collects ``{span name: [total seconds, count]}`` while active; nested
-    spans count inside their parents as well as on their own."""
+    spans count inside their parents as well as on their own. Spans with an
+    ``air`` field are also summed per AIR in ``by_air``
+    (``{(span name, air): [total seconds, count]}``)."""
 
     def __init__(self):
         self.totals: dict = {}
+        self.by_air: dict = {}
 
     def __enter__(self) -> "Recorder":
         _recorders.append(self)
@@ -33,10 +36,16 @@ class Recorder:
     def __exit__(self, *exc) -> None:
         _recorders.remove(self)
 
-    def add(self, name: str, seconds: float) -> None:
-        entry = self.totals.setdefault(name, [0.0, 0])
-        entry[0] += seconds
-        entry[1] += 1
+    def add(self, name: str, seconds: float, air: str | None = None) -> None:
+        _accumulate(self.totals, name, seconds)
+        if air is not None:
+            _accumulate(self.by_air, (name, air), seconds)
+
+
+def _accumulate(table: dict, key, seconds: float) -> None:
+    entry = table.setdefault(key, [0.0, 0])
+    entry[0] += seconds
+    entry[1] += 1
 
 
 def _sync() -> None:
@@ -58,4 +67,4 @@ def span(name: str, **fields):
     finally:
         dt = time.perf_counter() - t0
         for rec in _recorders:
-            rec.add(name, dt)
+            rec.add(name, dt, fields.get("air"))

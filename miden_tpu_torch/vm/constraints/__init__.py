@@ -6,6 +6,6 @@ degree-reduction scheme (op_flags/mod.rs), decoder constraints
 (docs/src/design/stack/), range checker (docs/src/design/range.md).
 """
 
-from .core import CoreVmAir
+from .core import CoreVmAir, check_core_trace
 
-__all__ = ["CoreVmAir"]
+__all__ = ["CoreVmAir", "check_core_trace"]

@@ -44,7 +44,8 @@ EC_P = 2**256 - 2**32 - 977
 
 
 def _inv(a: int, m: int) -> int:
-    return pow(a, m - 2, m)
+    """a^(m−2) mod m (0 for a ≡ 0), by the extended Euclid of ``pow``."""
+    return pow(a, -1, m) if a % m else 0
 
 
 Digest = tuple  # 4 field elements

@@ -276,15 +276,13 @@ def verify_program(
 
     When the proof binds a non-zero deferred root (the execution logged
     precompile claims via LOGDEFERRED), a matching deferred-session proof
-    must be supplied as ``deferred`` and verified against the bound root — the reference's
+    must be supplied as ``deferred`` and verified against the bound root
+    (``precompile.session.verify_deferred``) — the reference's
     `resolve_final_deferred_root` step (verifier/src/lib.rs:99-110).
     ``partial=True`` skips that resolution (`Verifier::verify_partial`,
     verifier/src/lib.rs:46-48): the caller takes responsibility for
-    discharging the deferred root later.
-
-    The deferred-session verifier (``precompile/``) is not in the port yet
-    (ROADMAP §1 item 12): resolving a non-zero deferred root without
-    ``partial=True`` raises NotImplementedError."""
+    discharging the deferred root later. The session proof comes from
+    ``precompile.session.prove_deferred_state_dag(out.deferred_state)``."""
     from ..stark.verifier import VerificationError, verify
 
     if len(proof.stack_inputs) != L.MIN_STACK_DEPTH:
@@ -299,10 +297,9 @@ def verify_program(
                     "proof binds a deferred root; supply the deferred-"
                     "session proof or verify with partial=True"
                 )
-            raise NotImplementedError(
-                "the deferred-session verifier (precompile/) comes with a later "
-                "slice of the port (ROADMAP item 12); verify with partial=True"
-            )
+            from ..precompile.session import verify_deferred
+
+            verify_deferred(deferred, bound, params=params)
         elif deferred is not None:
             raise VerificationError(
                 "deferred proof supplied but the execution logged no claims"

@@ -32,6 +32,10 @@ def _sources():
         "from miden_tpu_torch.vm import assemble, execute; from miden_tpu_torch.vm.trace import execute_and_trace",
         "from miden_tpu_torch.vm.constraints.aux_numeric import build_device_aux",
         "from miden_tpu_torch.merkle import MerkleStore, MerkleTree, Smt, Mmr; import miden_tpu_torch.native",
+        "from miden_tpu_torch.precompile.session import prove_deferred_state_dag, verify_deferred; "
+        "from miden_tpu_torch.stdlib import assemble_with_stdlib, stdlib_event_handlers; "
+        "from miden_tpu_torch.dsa.ecdsa_k256 import SigningKey; import miden_tpu_torch.bench_session",
+        "from miden_tpu_torch.stark.debug import check_air; from miden_tpu_torch.vm.constraints import check_core_trace",
     ],
 )
 def test_import_pulls_in_neither_jax_nor_miden_tpu(stmt):

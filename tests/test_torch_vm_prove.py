@@ -89,8 +89,11 @@ def test_deferred_root_resolution_waits_for_the_precompile_slice(port_proof):
     bound = dataclasses.replace(proof, deferred_root=(1, 2, 3, 4))
     with pytest.raises(VerificationError):  # no session proof supplied
         verify_program(bound, params=TEST_PARAMS)
-    with pytest.raises(NotImplementedError):
-        verify_program(bound, params=TEST_PARAMS, deferred=object())
+    from miden_tpu_torch.precompile.session import DeferredProof
+
+    wrong = DeferredProof(root=(1, 2, 3, 5), n_claims=1, stark=None)
+    with pytest.raises(VerificationError, match="deferred root mismatch"):
+        verify_program(bound, params=TEST_PARAMS, deferred=wrong)
     with pytest.raises(VerificationError):  # nothing to resolve
         verify_program(proof, params=TEST_PARAMS, deferred=object())
 
