@@ -8,9 +8,10 @@ Phases, one line each (plus details):
 1. build the CUDA kernels from miden_tpu_torch/csrc (one nvcc per source,
    in parallel) and the C trace generator (miden_tpu_torch/native);
 2. hold each kernel entry (K1 ntt_col_transform, K2 ntt_transpose_twiddle,
-   K3 poseidon2_permute, poseidon2_absorb_rows, poseidon2_compress_rows)
-   against its plain torch twin on the card, exact equality, on inputs from
-   a seeded numpy generator;
+   K3 poseidon2_permute, poseidon2_absorb_rows, poseidon2_compress_rows, and
+   the same three entries of R1 RPO-256 and R2 RPX-256) against its plain
+   torch twin on the card, exact equality, on inputs from a seeded numpy
+   generator;
 3. prove miden_shaped_statement(10) at MIDEN_PARAMS on the card and on the
    CPU: the proof bytes must be equal and the port's verifier must accept;
 4. prove miden_shaped_statement(18) at MIDEN_PARAMS on the card (core
@@ -25,11 +26,18 @@ Phases, one line each (plus details):
    MIDEN_PARAMS: one warm-up and three timed prove_program calls (host
    clock around the whole call, as bench.py times it), execute_and_trace's
    time beside them, the AIRs' log heights, the kernel launch counts of one
-   proof (every entry must be launched), the span breakdown of one traced
-   prove, peak memory, the proof size, verify_program's verdict and the
-   top of the stack against fib mod p;
+   proof (every entry of the path must be launched, and no other), the span
+   breakdown of one traced prove, peak memory, the proof size,
+   verify_program's verdict and the top of the stack against fib mod p;
    (c) the trace of (b) was written by the C trace generator, not the
    Python interpreter;
+   5c. the same facade under PcsParams(hash_name="rpo256" | "rpx256"), whose
+   trees R1 / R2 build: the fib program (repeat.10) card == CPU and
+   verified under each; vm-fib-18-rpo256 (the program of (b)) timed like
+   (b), traced and verified; vm-fib-18-rpx256, one timed call, verified;
+   5d. bench_airs.square_lut_statement, an AIR with preprocessed columns,
+   at MIDEN_PARAMS: card == CPU at 2^10 rows, one proof at 2^18 rows on
+   the card, verified against its preprocessed commitment;
 6. the precompile session, the second STARK: (a) the pinned sessions of
    ``miden_tpu_torch.bench_session`` (U256_SESSION, MIXED_SESSION with every
    session AIR, and its two halves) proved at TEST_PARAMS on the card, their
@@ -46,8 +54,11 @@ Phases, one line each (plus details):
    verify_program(proof, deferred=session) accepting where a tampered root
    and a missing session are rejected;
 7. hold each kernel against its plain twin and time it, with its bound, at
-   every shape phases 4, 5(b) and 6(b) launched it with (K1 printed at each
-   shape), with its time per shaped, VM and session proof;
+   every shape phases 4, 5(b), 5c and 6(b) launched it with (K1 printed at
+   each shape; a sponge entry over every state of a launch, or over 2^14
+   states spread over it where the plain twin would take more than 30 s),
+   with its time per proof of each kind; R1 / R2's permute entries, which no
+   proof launches, at n = 2^16;
 8. the device-busy share of one more VM fib-18 prove_program under
    torch.profiler (last on the card: after the profiler every launch costs
    the host more), the JSON line of kernels, the card's name and power
@@ -59,6 +70,7 @@ needs one CUDA device, and the repository around it.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -71,6 +83,7 @@ import numpy as np
 SEED = [0x6D69, 0x6465, 0x6E2D, 0x7470]  # the bench's domain separator
 SMALL_LOG, FULL_LOG = 10, 18
 VM_SMALL_REPS, VM_FULL_REPS = 10, 84000  # fib loop: 3 VM ops a repeat
+PP_SMALL_LOG, PP_FULL_LOG = 10, 18  # rows of the preprocessed statement
 
 
 def fib_program(reps: int) -> str:
@@ -162,7 +175,7 @@ def device_busy(torch, fn) -> str:
 
 def kernel_table() -> dict:
     """Kernel entry -> (its cuda.Kernel, source, the TPU kernel it replaces)."""
-    from miden_tpu_torch.hash import poseidon2
+    from miden_tpu_torch.hash import poseidon2, rescue
     from miden_tpu_torch.ntt import ntt
 
     return {
@@ -176,7 +189,33 @@ def kernel_table() -> dict:
                                   "miden_tpu/hash/poseidon2_pallas.py:156"),
         "poseidon2_compress_rows": (poseidon2.COMPRESS_KERNEL, "miden_tpu_torch/csrc/poseidon2.cu",
                                     "miden_tpu/hash/poseidon2_pallas.py:156"),
+        # R1 and R2 are the port's own: miden_tpu computes them in XLA, with no
+        # Pallas kernel (rescue.py:180 rpo_permute, :215 rpx_permute)
+        **{f"{perm}_{entry}": (getattr(sponge, attr), "miden_tpu_torch/csrc/rescue.cu",
+                               f"miden_tpu/hash/rescue.py:{line}")
+           for perm, sponge, line in (("rpo", rescue.RPO, 180), ("rpx", rescue.RPX, 215))
+           for entry, attr in (("permute", "PERMUTE_KERNEL"), ("absorb_rows", "ABSORB_KERNEL"),
+                               ("compress_rows", "COMPRESS_KERNEL"))},
     }
+
+
+def path_kernels(hash_name: str) -> list:
+    """The kernel entries a proof launches under commitment hash
+    ``hash_name``: K1, K2 and K3's permute (the transcript is Poseidon2
+    whatever the hash) and the leaf sponge and Merkle layer of the hash."""
+    leaf = {"poseidon2": "poseidon2", "rpo256": "rpo", "rpx256": "rpx"}[hash_name]
+    return ["ntt_col_transform", "ntt_transpose_twiddle", "poseidon2_permute",
+            f"{leaf}_absorb_rows", f"{leaf}_compress_rows"]
+
+
+def check_path(launches: dict, hash_name: str, what: str) -> None:
+    """Every entry of the path was launched, and no other."""
+    path = path_kernels(hash_name)
+    missing = [k for k in path if not launches[k]]
+    stray = [k for k, n in launches.items() if n and k not in path]
+    if missing or stray:
+        raise AssertionError(f"{what}: entries of the path not launched {missing}, "
+                             f"entries off the path launched {stray}: {launches}")
 
 
 def zero_counts(kernels) -> None:
@@ -349,8 +388,7 @@ def session_phase(torch, kernels, dev: str, pinned) -> tuple:
         pass
     else:
         raise AssertionError("a session verified against a tampered root")
-    if not all(session_launches.values()):
-        raise AssertionError(f"a kernel was not launched on the session proof: {session_launches}")
+    check_path(session_launches, "poseidon2", "the session proof")
     airs = [type(a).__name__ for a in S._session_statement(
         session.root, session.n_claims, session.n_u256, session.n_kmerge, session.n_ec).multi_air.airs]
     log("  session AIRs and log heights: " + ", ".join(
@@ -369,27 +407,200 @@ def session_phase(torch, kernels, dev: str, pinned) -> tuple:
     return session_launches, session_shapes
 
 
+def rescue_phase(torch, kernels, dev: str) -> dict:
+    """Phase 5c: the VM facade under the two other commitment hashes of
+    PcsParams, rpo256 and rpx256 (kernels R1 and R2 build every tree): (a)
+    the fib program (repeat.10) at MIDEN_PARAMS on the card and on the CPU,
+    proof bytes equal and verify_program accepting; (b) vm-fib-18-rpo256, the
+    program of phase 5b at MIDEN_PARAMS with hash_name="rpo256": one warm-up
+    and three timed prove_program calls, the spans of a traced call, peak
+    memory, verified; (c) vm-fib-18-rpx256: one timed call, verified.
+    Returns {"vm_rpo" | "vm_rpx": (launches, launch shapes)} of the first
+    timed call of each."""
+    from miden_tpu_torch.field import gl
+    from miden_tpu_torch.stark import MIDEN_PARAMS
+    from miden_tpu_torch.utils.tracing import Recorder
+    from miden_tpu_torch.vm import assemble
+    from miden_tpu_torch.vm.prove import prove_program, verify_program
+
+    small, full = assemble(fib_program(VM_SMALL_REPS)), assemble(fib_program(VM_FULL_REPS))
+    out = {}
+    for hash_name, kind, reps in (("rpo256", "vm_rpo", 3), ("rpx256", "vm_rpx", 1)):
+        params = dataclasses.replace(MIDEN_PARAMS, hash_name=hash_name)
+        _, on_card = prove_program(small, params=params, device=dev)
+        t0 = time.perf_counter()
+        _, on_cpu = prove_program(small, params=params, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        if on_card.to_bytes() != on_cpu.to_bytes():
+            raise AssertionError(f"{hash_name}: VM proofs from the card and the CPU differ")
+        verify_program(on_card, params=params)
+        log(f"  {hash_name} fib repeat.{VM_SMALL_REPS}: card == CPU ({len(on_card.to_bytes())} bytes), "
+            f"verified; CPU prove {cpu_s:.3f} s")
+        warm = ""
+        if reps > 1:
+            t0 = time.perf_counter()
+            prove_program(full, params=params, device=dev)
+            torch.cuda.synchronize()
+            warm = f"; warm-up {time.perf_counter() - t0:.3f} s"
+        torch.cuda.reset_peak_memory_stats()
+        times, shapes = [], {name: {} for name in kernels}
+        for rep in range(reps):
+            if rep == 0:
+                zero_counts(kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vm_out, proof = prove_program(full, params=params, device=dev)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if rep == 0:
+                launches = {name: kern.launches for name, (kern, _, _) in kernels.items()}
+                record_shapes(kernels, shapes)
+        peak = torch.cuda.max_memory_allocated()
+        check_path(launches, hash_name, f"vm-fib-18-{hash_name}")
+        if reps > 1:
+            with Recorder() as rec:
+                prove_program(full, params=params, device=dev)
+            log("  spans (traced prove_program, synchronized at span edges): " + "; ".join(
+                f"{k} {v[0]:.4f} s" for k, v in rec.totals.items()))
+        t0 = time.perf_counter()
+        verify_program(proof, params=params)
+        verify_s = time.perf_counter() - t0
+        if vm_out.stack[0] != fib_top(VM_FULL_REPS, gl.P):
+            raise AssertionError(f"{hash_name}: VM program left {vm_out.stack[0]} on top of the stack")
+        log(f"  launches per vm-fib-18-{hash_name} proof: {launches}")
+        log_phase(f"phase 5c vm-fib-18-{hash_name} MIDEN_PARAMS: log heights {proof.stark.log_heights}; "
+                  f"prove_program {'median ' if reps > 1 else ''}{statistics.median(times):.4f} s (runs "
+                  f"{', '.join(f'{t:.4f}' for t in times)}{warm}), peak memory {peak / 2**30:.3f} GiB, "
+                  f"proof {len(proof.to_bytes())} bytes, verified in {verify_s:.3f} s, top of stack == fib mod p")
+        out[kind] = (launches, shapes)
+    return out
+
+
+def preprocessed_phase(torch, dev: str) -> None:
+    """Phase 5d: a statement whose AIR declares preprocessed columns
+    (``bench_airs.square_lut_statement``) at MIDEN_PARAMS: at 2^PP_SMALL_LOG
+    rows on the card and on the CPU, commitment and proof bytes equal; then
+    one proof at 2^PP_FULL_LOG rows on the card. Each is verified against
+    its preprocessed commitment."""
+    from miden_tpu_torch.bench_airs import square_lut_statement
+    from miden_tpu_torch.stark import MIDEN_PARAMS, build_preprocessed, prove, verify
+    from miden_tpu_torch.stark.proof_io import proof_to_bytes
+    from miden_tpu_torch.transcript.challenger import DuplexChallenger
+
+    for log_n, devices in ((PP_SMALL_LOG, (dev, "cpu")), (PP_FULL_LOG, (dev,))):
+        made = []
+        for d in devices:
+            st, tr = square_lut_statement(log_n, device=d)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pp = build_preprocessed(st, MIDEN_PARAMS, device=d)
+            out = prove(MIDEN_PARAMS, st, tr, DuplexChallenger(SEED), preprocessed=pp, device=d)
+            torch.cuda.synchronize()
+            made.append((proof_to_bytes(out.proof), pp.commitment(), time.perf_counter() - t0))
+        if len({(blob, root) for blob, root, _ in made}) != 1:
+            raise AssertionError(f"preprocessed statement 2^{log_n}: card and CPU proofs differ")
+        digest = verify(MIDEN_PARAMS, st, out.proof, DuplexChallenger(SEED),
+                        preprocessed_commitment=pp.commitment())
+        if digest != out.digest:
+            raise AssertionError(f"preprocessed statement 2^{log_n}: rejected")
+        log(f"  preprocessed statement 2^{log_n} rows: " + ", ".join(
+            f"{d} build_preprocessed + prove {secs:.3f} s" for d, (_, _, secs) in zip(devices, made))
+            + f"; {len(made[0][0])} bytes" + (", card == CPU" if len(made) > 1 else "") + ", verified")
+    log_phase(f"phase 5d preprocessed columns at MIDEN_PARAMS: card == CPU at 2^{PP_SMALL_LOG} rows, "
+              f"2^{PP_FULL_LOG} rows proved on the card and verified")
+
+
+#: the cell each kernel entry's JSON row reports: the VM proof under the
+#: commitment hash whose trees the entry builds (K1, K2 and K3 under poseidon2)
+ROW_KIND = {"rpo": "vm_rpo", "rpx": "vm_rpx"}
+
+
+#: a sponge launch is held to its plain twin over every state where the twin
+#: would take at most this many seconds, and above that over SAMPLE_STATES
+#: states spread over the launch
+PLAIN_CHECK_S = 30.0
+SAMPLE_STATES = 1 << 14
+#: states of the batch that measures a plain permutation's seconds per state
+PLAIN_RATE_STATES = 1 << 20
+
+
+def spread_states(torch, n: int):
+    """Indices of SAMPLE_STATES of a launch's n states: the first and the
+    last quarter of them, and half at an even stride over the launch (every
+    state where n is no larger)."""
+    if n <= SAMPLE_STATES:
+        return torch.arange(n, device="cuda")
+    q = SAMPLE_STATES // 4
+    stride = n // (2 * q)
+    return torch.cat([
+        torch.arange(q), torch.arange(n - q, n), torch.arange(2 * q) * stride + stride // 2,
+    ]).cuda()
+
+
+def hold_sponge_launch(torch, bench: dict, s_per_perm: float) -> tuple:
+    """Holds one launch of a sponge entry (a :func:`bench_case`) against its
+    plain twin: over every state where ``s_per_perm`` (the twin's seconds per
+    permutation at PLAIN_RATE_STATES states) x the launch's permutations,
+    with smaller launches costed as that many states, is at most
+    PLAIN_CHECK_S; else over :func:`spread_states` (each state is independent
+    of the others, so the check is exact for those). Returns (max |diff|,
+    states compared, the twin's ms over every state or None)."""
+    from miden_tpu_torch.bench_kernels import time_ms
+
+    n = bench["states"]
+    est_s = s_per_perm * bench["perms"] * max(1, PLAIN_RATE_STATES / n)
+    if est_s > PLAIN_CHECK_S:
+        idx = spread_states(torch, n)
+        return max_abs_err(*bench["at"](idx)), len(idx), None
+    got, out = bench["kernel"](), []
+    plain_ms = time_ms(lambda: out.append(bench["plain"]()), 1, warm=False)
+    return max_abs_err(got, out[0]), n, plain_ms
+
+
 def kernel_rows(torch, kernels, proofs, errs, rand) -> list:
     """Holds each kernel against its plain twin on random inputs at every
     shape the proofs launched it with (the shaped proof's traces are zeros,
     so its launches alone would not show the kernels right there), times
-    it there, and returns one JSON row per entry: its largest shape on the
-    VM proof (the main path) with bound and plain time, and its launches and
-    ms per proof of each kind. ``proofs``: kind -> (launches, shapes) for
-    "vm", "shaped" and "session"."""
-    from miden_tpu_torch.bench_kernels import HBM_BYTES_PER_S, bench_case, bound_ms, time_ms
-    from miden_tpu_torch.hash import poseidon2
+    it there, and returns one JSON row per entry launched on a VM proof: its
+    largest shape on the VM proof of its cell with bound and plain time, and
+    its launches and ms per proof of each kind. A sponge entry is held to
+    its twin over every state of a launch unless the twin would take more
+    than PLAIN_CHECK_S there (:func:`hold_sponge_launch`). ``proofs``:
+    kind -> (launches, shapes) for "vm", "shaped", "session", "vm_rpo" and
+    "vm_rpx"."""
+    from miden_tpu_torch.bench_kernels import (
+        HBM_BYTES_PER_S, INT32_MULS_PER_PERM, bench_case, bound_ms, time_ms,
+    )
+    from miden_tpu_torch.hash import poseidon2, rescue
     from miden_tpu_torch.ntt import ntt
 
+    sponge_map = {"poseidon2": poseidon2, "rpo": rescue.RPO, "rpx": rescue.RPX}
+    s_per_perm = {}
+    for perm, sp in sponge_map.items():
+        s = rand((12, PLAIN_RATE_STATES))
+        s_per_perm[perm] = time_ms(lambda: sp.permute_plain(s), 1, warm=False) / 1e3 / PLAIN_RATE_STATES
+    log("  plain twins' s per permutation at 2^20 states: " + ", ".join(
+        f"{perm} {v:.4g}" for perm, v in s_per_perm.items()))
     mul_rate = int32_mul_rate(torch)
     rows = []
     for name, (kern, source, replaces) in kernels.items():
+        perm = name.split("_")[0]
+        main = ROW_KIND.get(perm, "vm")
         per_proof = {kind: 0.0 for kind in proofs}
         keys = sorted(set().union(*(shapes[name] for _, shapes in proofs.values())))
-        top = None
+        if not keys:  # an entry no proof launches (R1 / R2 permute): one shape
+            keys = [(1 << 16,)]
+        top, sampled = None, []
         for key in keys:
-            bench = bench_case(ntt, poseidon2, rand, name, key)
-            errs[name] = max(errs[name], max_abs_err(bench["kernel"](), bench["plain"]()))
+            bench = bench_case(ntt, sponge_map, rand, name, key)
+            plain_ms = None
+            if perm in INT32_MULS_PER_PERM:
+                err, covered, plain_ms = hold_sponge_launch(torch, bench, s_per_perm[perm])
+                if covered < bench["states"]:
+                    sampled.append(key)
+            else:
+                err = max_abs_err(*bench["check"]())
+            errs[name] = max(errs[name], err)
             ms = time_ms(bench["kernel"], bench["reps"])
             counts = {kind: shapes[name].get(key, 0) for kind, (_, shapes) in proofs.items()}
             for kind, count in counts.items():
@@ -399,35 +610,41 @@ def kernel_rows(torch, kernels, proofs, errs, rand) -> list:
                 log(f"    {name} at {key}: {ms:.4f} ms/launch x " + " / ".join(
                     f"{c} ({kind})" for kind, c in counts.items()
                 ) + f", bound {k_bound:.4f} ms ({100 * k_bound / ms:.1f} % of bound)")
-            # the row reports the largest shape of the VM proof, the main path
-            if counts["vm"] and (top is None or bench["elems"] > top[1]["elems"]):
-                top = (key, bench, ms, counts["vm"])
-        log(f"  {name}: kernel == plain at all {len(keys)} shapes of the proofs, max |diff| {errs[name]}")
+            # the row reports the largest shape of its cell's VM proof
+            on_main = counts[main] > 0 or not proofs[main][0][name]
+            if on_main and (top is None or bench["elems"] > top[1]["elems"]):
+                top = (key, bench, ms, counts[main], plain_ms)
+        over = (f" (over every state at {len(keys) - len(sampled)}; at {sampled}, where the plain "
+                f"twin would take over {PLAIN_CHECK_S:g} s, over {SAMPLE_STATES} states: the first "
+                f"and last {SAMPLE_STATES // 4} and {SAMPLE_STATES // 2} at an even stride)"
+                if sampled else "")
+        log(f"  {name}: kernel == plain at all {len(keys)} shapes{over}, max |diff| {errs[name]}")
         if errs[name]:
             raise AssertionError(f"{name} disagrees with its plain version at the proofs' shapes")
-        key, bench, ms, count = top
-        plain_ms = time_ms(bench["plain"], 2)
+        key, bench, ms, count, plain_ms = top
+        if plain_ms is None:
+            plain_ms = time_ms(bench["plain"], 1, warm=False)
         b_ms = bound_ms(bench, mul_rate)
+        bound_by = ("bytes" if bench["bytes"] / HBM_BYTES_PER_S >= bench["ops"] / mul_rate
+                    else "operations")
+        log(f"  {name} at {key}: {ms:.4f} ms/launch (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"by {bound_by}); per proof: " + "; ".join(
+                f"{kind} {proofs[kind][0][name]} launches over {len(proofs[kind][1][name])} shapes, "
+                f"{per_proof[kind]:.3f} ms" for kind in proofs))
+        if not proofs[main][0][name]:
+            continue  # not on a proof's path: no JSON row
         row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": proofs["vm"][0][name], "max_abs_err": errs[name],
+            "launches": proofs[main][0][name], "max_abs_err": errs[name],
             "ms": round(ms, 6), "plain_ms": round(plain_ms, 6), "bound_ms": round(b_ms, 6),
-            "bound_by": "bytes" if bench["bytes"] / HBM_BYTES_PER_S >= bench["ops"] / mul_rate
-            else "operations",
-            "library_ms": None, "shape": list(key), "launches_at_shape": count,
-            "ms_per_vm_proof": round(per_proof["vm"], 6),
-            "launches_shaped": proofs["shaped"][0][name],
-            "ms_per_shaped_proof": round(per_proof["shaped"], 6),
-            "launches_session": proofs["session"][0][name],
-            "ms_per_session_proof": round(per_proof["session"], 6),
+            "bound_by": bound_by, "library_ms": None, "cell": main, "shape": list(key),
+            "launches_at_shape": count,
+            "per_proof": {kind: {"launches": proofs[kind][0][name], "ms": round(per_proof[kind], 6)}
+                          for kind in proofs},
         }
         if "copy" in bench:  # the bare transpose copy, a yardstick for K2
             row["copy_ms"] = round(time_ms(bench["copy"], bench["reps"]), 6)
         rows.append(row)
-        log(f"  {name} at {key}: {ms:.4f} ms/launch (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-            f"by {row['bound_by']}); per proof: " + "; ".join(
-                f"{kind} {proofs[kind][0][name]} launches over {len(proofs[kind][1][name])} shapes, "
-                f"{per_proof[kind]:.3f} ms" for kind in proofs))
     return rows
 
 
@@ -441,7 +658,7 @@ def main() -> int:
     from miden_tpu_torch.bench_airs import miden_shaped_statement
     from miden_tpu_torch.field import gl
     from miden_tpu_torch.field import goldilocks as F
-    from miden_tpu_torch.hash import poseidon2
+    from miden_tpu_torch.hash import poseidon2, rescue
     from miden_tpu_torch.ntt import ntt
     from miden_tpu_torch.stark import MIDEN_PARAMS, prove, verify
     from miden_tpu_torch.stark.proof_io import proof_to_bytes
@@ -460,7 +677,7 @@ def main() -> int:
 
     # -- 1. build ------------------------------------------------------------
     secs = cuda.build_all()
-    for name in ("ntt", "poseidon2"):
+    for name in ("ntt", "poseidon2", "rescue"):
         ptxas = [
             ln.strip() for ln in (cuda.BUILD_DIR / f"{name}.log").read_text().splitlines()
             if "registers" in ln or "spill" in ln
@@ -468,7 +685,7 @@ def main() -> int:
         log(f"  ptxas {name}: " + " | ".join(ptxas))
     t0 = time.perf_counter()
     native.trace_gen_lib()
-    log_phase(f"phase 1 build: {secs:.3f} s for csrc/ntt.cu and csrc/poseidon2.cu, "
+    log_phase(f"phase 1 build: {secs:.3f} s for csrc/ntt.cu, csrc/poseidon2.cu and csrc/rescue.cu, "
         f"{time.perf_counter() - t0:.3f} s for native/trace_gen.c ({native.LIBRARY.name})")
     from miden_tpu_torch.bench_session import _launch_us
 
@@ -499,6 +716,22 @@ def main() -> int:
         err = max_abs_err(poseidon2.compress_rows_kernel(cur), poseidon2.compress_rows_plain(cur))
         errs["poseidon2_compress_rows"] = max(errs["poseidon2_compress_rows"], err)
         checked["poseidon2_compress_rows"] += 1
+    for perm, sponge in (("rpo", rescue.RPO), ("rpx", rescue.RPX)):
+        for n in (1, 999, 1 << 14):
+            s = rand((12, n))
+            err = max_abs_err(sponge.permute_kernel(s), sponge.permute_plain(s))
+            errs[f"{perm}_permute"] = max(errs[f"{perm}_permute"], err)
+            checked[f"{perm}_permute"] += 1
+        for max_h, h, w in ((1, 1, 3), (256, 64, 51), (1 << 12, 1 << 10, 22), (1 << 12, 1 << 12, 8)):
+            s, m = rand((12, max_h)), rand((h, w))
+            err = max_abs_err(sponge.absorb_rows_kernel(s, m), sponge.absorb_rows_plain(s, m))
+            errs[f"{perm}_absorb_rows"] = max(errs[f"{perm}_absorb_rows"], err)
+            checked[f"{perm}_absorb_rows"] += 1
+        for m in (1, 999, 1 << 14):
+            cur = rand((2 * m, 4))
+            err = max_abs_err(sponge.compress_rows_kernel(cur), sponge.compress_rows_plain(cur))
+            errs[f"{perm}_compress_rows"] = max(errs[f"{perm}_compress_rows"], err)
+            checked[f"{perm}_compress_rows"] += 1
     for log_n in range(1, ntt.MAX_LOG_SINGLE + 1):
         for width in (1, 3, 51, 130):
             x = rand((1 << log_n, width))
@@ -577,8 +810,7 @@ def main() -> int:
     verify_s = time.perf_counter() - t0
     if digest != out.digest:
         raise AssertionError("full-size proof rejected")
-    if not all(launches.values()):
-        raise AssertionError(f"a kernel was not launched on the main path: {launches}")
+    check_path(launches, "poseidon2", "the shaped proof")
     log("  spans (traced prove, synchronized at span edges): " + "; ".join(
         f"{k} {v[0]:.4f} s" for k, v in rec.totals.items()
     ))
@@ -640,8 +872,7 @@ def main() -> int:
     want_top = fib_top(VM_FULL_REPS, gl.P)
     if vm_out.stack[0] != want_top:
         raise AssertionError(f"VM program left {vm_out.stack[0]}, fib mod p is {want_top}")
-    if not all(vm_launches.values()):
-        raise AssertionError(f"a kernel was not launched on the VM proof: {vm_launches}")
+    check_path(vm_launches, "poseidon2", "the VM proof")
     # (c) the core rows came from the C trace generator, not the interpreter
     c_share = native_runs["rows"] / vm_trace.num_real_rows
     if native_runs["block"] == 0 or c_share < 0.99:
@@ -662,6 +893,10 @@ def main() -> int:
         f"proof {len(vm_proof.to_bytes())} bytes, verified in {vm_verify_s:.3f} s, top of stack "
         f"{vm_out.stack[0]} == fib mod p")
 
+    # -- 5c, 5d: the other commitment hashes; preprocessed columns --------------
+    rescue_proofs = rescue_phase(torch, kernels, dev)
+    preprocessed_phase(torch, dev)
+
     # -- 6. the precompile session ---------------------------------------------
     from miden_tpu_torch import bench_session
 
@@ -670,7 +905,7 @@ def main() -> int:
     # -- 7. kernels vs plain, and timings, at the proofs' shapes --------------
     rows = kernel_rows(torch, kernels, {
         "vm": (vm_launches, vm_shapes), "shaped": (launches, shapes),
-        "session": (session_launches, session_shapes),
+        "session": (session_launches, session_shapes), **rescue_proofs,
     }, errs, rand)
     log_phase(f"phase 7 kernels vs plain and timings at the proofs' shapes on {card}")
 

@@ -1,5 +1,6 @@
 """Miden-shaped synthetic AIRs (the statement ``miden_tpu.bench_airs``
-defines), for benchmarking and the port's end-to-end checks.
+defines), for benchmarking and the port's end-to-end checks, and a statement
+with preprocessed columns (:func:`square_lut_statement`).
 
 A 51-column "core" AIR with an 8-EF-column LogUp aux block, a 22-column
 "chiplets" AIR and a 16-column "poseidon2-permutation" AIR with a 16-row
@@ -13,8 +14,11 @@ make them run on torch tensors.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from .field import gl
+from .field import goldilocks as F
 from .stark.air import Air, MultiAir
 
 
@@ -106,3 +110,43 @@ def miden_shaped_statement(log_core: int, device="cuda"):
     chip = zeros(1 << max(4, log_core - 2), 22)
     perm = zeros(1 << max(4, log_core - 4), 16)
     return Statement(airs, [0] * 32), [core, chip, perm]
+
+
+class SquareLutAir(Air):
+    """A fixed table of squares as a preprocessed column: row i holds
+    i² mod p, and the one main column must equal it plus the public offset,
+    read at both window offsets (the AIR of ``tests/test_preprocessed.py``
+    and the reference's framework fixture,
+    crates/lifted-stark/src/testing/test_preprocessed.rs), at 2^log_n rows."""
+
+    width = 1
+    preprocessed_width = 1
+    num_public_values = 1
+
+    def __init__(self, log_n: int):
+        self.log_n = log_n
+
+    def eval(self, f):
+        f.assert_zero(f.main(0) - f.preprocessed(0) - f.public(0))
+        f.assert_transition(f.main(0, 1) - f.preprocessed(0, 1) - f.public(0))
+
+    def preprocessed_trace(self):
+        i = np.arange(1 << self.log_n, dtype=object)
+        return np.asarray((i * i) % gl.P, dtype=np.uint64)[:, None]
+
+
+#: the public offset of :func:`square_lut_statement` (that of tests/test_preprocessed.py)
+SQUARE_LUT_OFFSET = 3
+
+
+def square_lut_statement(log_n: int, device="cuda"):
+    """The one-AIR statement of :class:`SquareLutAir` at 2^log_n rows and the
+    main trace that satisfies it (i² + SQUARE_LUT_OFFSET), made on ``device``."""
+    from .stark.prover import Statement
+
+    air = SquareLutAir(log_n)
+    table = air.preprocessed_trace()
+    trace = F.to_torch(
+        np.asarray((table.astype(object) + SQUARE_LUT_OFFSET) % gl.P, dtype=np.uint64), device
+    )
+    return Statement(MultiAir([air]), [SQUARE_LUT_OFFSET]), [trace]

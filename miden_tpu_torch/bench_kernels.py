@@ -11,16 +11,19 @@ points, so the A/B does not depend on its kernels' interfaces or tilings.
 The script
 
 1. builds both trees' kernels and prints for each build the ptxas registers
-   and spills of each kernel, and the SASS opcode counts of each kernel and
-   of one Goldilocks multiply and one add (probe kernels compiled against
-   the tree's ``goldilocks.cuh``, from ``cuobjdump -sass``);
-2. proves ``miden_shaped_statement(log_core)`` at ``MIDEN_PARAMS`` once with
-   each tree, to record the shapes each launches its kernels with;
+   and spills of each kernel (K1-K3, and R1 RPO-256 and R2 RPX-256 where the
+   tree has ``csrc/rescue.cu``), and the SASS opcode counts of each kernel
+   and of one Goldilocks multiply and one add (probe kernels compiled
+   against the tree's ``goldilocks.cuh``, from ``cuobjdump -sass``);
+2. proves ``miden_shaped_statement(log_core)`` at ``MIDEN_PARAMS`` once
+   under each commitment hash both trees have (poseidon2, and rpo256 and
+   rpx256 where both have R1 / R2) with each tree, to record the shapes each
+   launches its kernels with;
 3. for every kernel both trees have, times the two in turns (earlier, this,
    this, earlier) on the same random inputs at each shape both launched,
-   after checking that they agree; then each tree's kernel time per proof
-   (launches x ms per launch, over its own shapes), per kernel and for K3's
-   entries together.
+   after checking that they agree; then each tree's kernel time over those
+   proofs (launches x ms per launch, over its own shapes), per kernel and
+   for each permutation's entries together.
 
 Every time is CUDA events over a run of launches, in ms per launch. It needs
 one CUDA device and ``nvcc``.
@@ -30,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import importlib
 import importlib.util
 import re
@@ -43,22 +47,40 @@ import torch
 
 #: H100 SXM HBM3 bandwidth, bytes per second
 HBM_BYTES_PER_S = 3.35e12
-#: general Goldilocks multiplies per Poseidon2 permutation: 8 external rounds
-#: x 12 S-boxes x 4, plus 22 internal rounds x 4 (the lane-0 S-box). The
-#: internal diagonal needs none: MAT_DIAG's entries are ±2^k, ±3 and ±2^-k,
-#: products by shifts and adds
-MULS_PER_PERM = 8 * 12 * 4 + 22 * 4
-#: 32-bit multiplies per Goldilocks multiply: the 64x64 -> 128-bit product
-#: is four 32x32 -> 64 partial products, each a low and a high half
-INT32_MULS_PER_MUL = 8
+#: 32-bit multiplies per Goldilocks product: a general 64x64 -> 128-bit
+#: product is four 32x32 -> 64 partial products, each a low and a high half;
+#: a square needs three (lo*lo, hi*hi, and lo*hi once, doubled)
+INT32_MULS_PER_MUL, INT32_MULS_PER_SQUARE = 8, 6
+#: x^7 as x^2, x^4 (squares) and x^3, x^7 (products)
+_X7 = 2 * INT32_MULS_PER_SQUARE + 2 * INT32_MULS_PER_MUL
+#: x^(1/7) by the reference's addition chain: 63 squares and 9 products
+_X_INV7 = 63 * INT32_MULS_PER_SQUARE + 9 * INT32_MULS_PER_MUL
+#: x^7 in F_p[phi]/(phi^3 - phi - 1): two extension squares and two
+#: extension products, each 6 base squares / products (Karatsuba)
+_X7_EXT3 = 2 * 6 * INT32_MULS_PER_SQUARE + 2 * 6 * INT32_MULS_PER_MUL
+#: 32-bit multiplies per permutation. Poseidon2: 8 external rounds x 12
+#: S-boxes plus 22 internal rounds x 1 (the internal diagonal needs none:
+#: MAT_DIAG's entries are ±2^k, ±3 and ±2^-k, products by shifts and adds).
+#: RPO: 7 rounds x 12 lanes x (x^7 + x^(1/7)). RPX: 3 such rounds, plus 3 E
+#: rounds of four cubic-extension x^7. The MDS of RPO / RPX is multiply-adds
+#: by constants <= 26, not counted.
+INT32_MULS_PER_PERM = {
+    "poseidon2": (8 * 12 + 22) * _X7,
+    "rpo": 7 * 12 * (_X7 + _X_INV7),
+    "rpx": 3 * 12 * (_X7 + _X_INV7) + 3 * 4 * _X7_EXT3,
+}
 
-#: kernel symbol -> (module under the package, attribute of its cuda.Kernel)
+#: kernel symbol -> (module under the package, attribute path of its cuda.Kernel)
 KERNELS = {
     "ntt_col_transform": ("ntt.ntt", "COL_KERNEL"),
     "ntt_transpose_twiddle": ("ntt.ntt", "TRANSPOSE_KERNEL"),
     "poseidon2_permute": ("hash.poseidon2", "PERMUTE_KERNEL"),
     "poseidon2_absorb_rows": ("hash.poseidon2", "ABSORB_KERNEL"),
     "poseidon2_compress_rows": ("hash.poseidon2", "COMPRESS_KERNEL"),
+    **{f"{name}_{entry}": ("hash.rescue", f"{name.upper()}.{attr}")
+       for name in ("rpo", "rpx")
+       for entry, attr in (("permute", "PERMUTE_KERNEL"), ("absorb_rows", "ABSORB_KERNEL"),
+                           ("compress_rows", "COMPRESS_KERNEL"))},
 }
 
 
@@ -66,9 +88,12 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, reps: int) -> float:
-    """ms per call of ``fn``: CUDA events around ``reps`` calls after one."""
-    fn()
+def time_ms(fn, reps: int, warm: bool = True) -> float:
+    """ms per call of ``fn``: CUDA events around ``reps`` calls, after one
+    unless ``warm`` is False (a plain twin, which has nothing to warm up and
+    may take seconds a call)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -91,37 +116,72 @@ def bound_ms(case: dict, mul_rate: float) -> float:
     return max(case["bytes"] / HBM_BYTES_PER_S, case["ops"] / mul_rate) * 1e3
 
 
-def bench_case(ntt, poseidon2, rand, name: str, key: tuple) -> dict:
+def sponges(tree_mod) -> dict:
+    """{permutation name: the object with its entries} of one tree
+    (``tree_mod(name)`` imports a module of the tree's package): the
+    Poseidon2 module itself, and RPO / RPX where the tree has them."""
+    out = {"poseidon2": tree_mod("hash.poseidon2")}
+    try:
+        rescue = tree_mod("hash.rescue")
+    except ImportError:
+        return out
+    return {**out, "rpo": rescue.RPO, "rpx": rescue.RPX}
+
+
+#: permutation name -> the PcsParams.hash_name whose trees it builds
+HASH_NAMES = {"poseidon2": "poseidon2", "rpo": "rpo256", "rpx": "rpx256"}
+
+
+def bench_case(ntt, sponge_map, rand, name: str, key: tuple) -> dict:
     """Random inputs for one launch of kernel ``name`` at the recorded shape
-    ``key``: the kernel call (through the wrappers of the given ``ntt`` and
-    ``poseidon2`` modules), its plain twin, and the bytes and 32-bit
-    multiplies the launch needs."""
-    if name == "poseidon2_permute":
-        (n,) = key
-        s = rand((12, n))
-        return {
-            "kernel": lambda: poseidon2.permute_kernel(s), "plain": lambda: poseidon2.permute_plain(s),
-            "elems": 12 * n, "bytes": 2 * 12 * n * 8,
-            "ops": MULS_PER_PERM * INT32_MULS_PER_MUL * n, "reps": 20 if n > 4096 else 200,
-        }
-    if name == "poseidon2_absorb_rows":
-        max_h, h, w = key
-        s, m = rand((12, max_h)), rand((h, w))
-        return {
-            "kernel": lambda: poseidon2.absorb_rows_kernel(s, m),
-            "plain": lambda: poseidon2.absorb_rows_plain(s, m),
-            "elems": max_h * w, "bytes": (h * w + 2 * 12 * max_h) * 8,
-            "ops": -(-w // 8) * MULS_PER_PERM * INT32_MULS_PER_MUL * max_h,
-            "reps": 10 if max_h > 4096 else 100,
-        }
-    if name == "poseidon2_compress_rows":
+    ``key``: the kernel call (through the wrappers of the given ``ntt``
+    module and the sponges of :func:`sponges`), its plain twin, and the
+    bytes and 32-bit multiplies the launch needs. An NTT case has ``check``
+    (the kernel's output and the twin's); a sponge entry has ``states``,
+    ``perms`` (permutations of the launch) and ``at(idx)``: the kernel's
+    output at the states ``idx`` (a 1-d index tensor) and the twin's over
+    those states alone (each state is independent of the others)."""
+    perm, _, entry = name.partition("_")
+    if perm in INT32_MULS_PER_PERM:
+        sp = sponge_map[perm]
+        ops_per_perm = INT32_MULS_PER_PERM[perm]
+        if entry == "permute":
+            (n,) = key
+            s = rand((12, n))
+            return {
+                "kernel": lambda: sp.permute_kernel(s), "plain": lambda: sp.permute_plain(s),
+                "at": lambda idx: (sp.permute_kernel(s)[:, idx], sp.permute_plain(s[:, idx])),
+                "states": n, "perms": n,
+                "elems": 12 * n, "bytes": 2 * 12 * n * 8,
+                "ops": ops_per_perm * n, "reps": 20 if n > 4096 else 200,
+            }
+        if entry == "absorb_rows":
+            max_h, h, w = key
+            s, m = rand((12, max_h)), rand((h, w))
+            blocks = -(-w // 8)
+            return {
+                "kernel": lambda: sp.absorb_rows_kernel(s, m),
+                "plain": lambda: sp.absorb_rows_plain(s, m),
+                # state j takes row j mod h
+                "at": lambda idx: (sp.absorb_rows_kernel(s, m)[:, idx],
+                                   sp.absorb_rows_plain(s[:, idx], m[idx % h])),
+                "states": max_h, "perms": blocks * max_h,
+                "elems": max_h * w, "bytes": (h * w + 2 * 12 * max_h) * 8,
+                "ops": blocks * ops_per_perm * max_h,
+                "reps": 10 if max_h > 4096 else 100,
+            }
+        assert entry == "compress_rows", name
         (m,) = key
         cur = rand((2 * m, 4))
         return {
-            "kernel": lambda: poseidon2.compress_rows_kernel(cur),
-            "plain": lambda: poseidon2.compress_rows_plain(cur),
+            "kernel": lambda: sp.compress_rows_kernel(cur),
+            "plain": lambda: sp.compress_rows_plain(cur),
+            # state i takes rows 2i and 2i + 1
+            "at": lambda idx: (sp.compress_rows_kernel(cur)[idx],
+                               sp.compress_rows_plain(cur.view(m, 8)[idx].reshape(-1, 4))),
+            "states": m, "perms": m,
             "elems": m, "bytes": (2 * m * 4 + m * 4) * 8,
-            "ops": MULS_PER_PERM * INT32_MULS_PER_MUL * m, "reps": 20 if m > 4096 else 200,
+            "ops": ops_per_perm * m, "reps": 20 if m > 4096 else 200,
         }
     if name == "ntt_col_transform":
         log_n, m, dit, inverse = key
@@ -129,6 +189,7 @@ def bench_case(ntt, poseidon2, rand, name: str, key: tuple) -> dict:
         return {
             "kernel": lambda: ntt.col_transform_kernel(x, inverse, dit),
             "plain": lambda: ntt.transform_plain(x, inverse, dit),
+            "check": lambda: (ntt.col_transform_kernel(x, inverse, dit), ntt.transform_plain(x, inverse, dit)),
             "elems": x.numel(), "bytes": (2 * x.numel() + (1 << log_n) - 1) * 8,
             "ops": (x.numel() // 2) * log_n * INT32_MULS_PER_MUL,
             "reps": 20 if x.numel() > 1 << 16 else 200,
@@ -140,6 +201,7 @@ def bench_case(ntt, poseidon2, rand, name: str, key: tuple) -> dict:
     return {
         "kernel": lambda: ntt.transpose_twiddle_kernel(x, tw, mode),
         "plain": lambda: ntt.transpose_twiddle_plain(x, tw, mode),
+        "check": lambda: (ntt.transpose_twiddle_kernel(x, tw, mode), ntt.transpose_twiddle_plain(x, tw, mode)),
         "copy": lambda: x.transpose(0, 1).contiguous(),
         "elems": x.numel(), "bytes": (2 * x.numel() + (a * b if mode else 0)) * 8,
         "ops": x.numel() * INT32_MULS_PER_MUL if mode else 0,
@@ -218,7 +280,7 @@ def report_build(label: str, cuda) -> None:
          "-o", str(probe), str(cuda.BUILD_DIR / "probe.cu")],
         check=True, capture_output=True,
     )
-    for name in ("ntt", "poseidon2"):
+    for name in sorted(p.stem for p in cuda.CSRC.glob("*.cu")):
         lines = [ln.strip() for ln in (cuda.BUILD_DIR / f"{name}.log").read_text().splitlines()
                  if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
         log(f"  {label} ptxas {name}: " + " | ".join(lines))
@@ -253,22 +315,30 @@ class Tree:
     def kernels(self) -> dict:
         """{symbol: cuda.Kernel} of the kernels this tree has."""
         out = {}
-        for symbol, (module, attr) in KERNELS.items():
-            kern = getattr(self.mod(module), attr, None)
+        for symbol, (module, path) in KERNELS.items():
+            try:
+                kern = self.mod(module)
+            except ImportError:
+                continue
+            for attr in path.split("."):
+                kern = getattr(kern, attr, None)
             if kern is not None:
                 out[symbol] = kern
         return out
 
-    def record_shapes(self, log_core: int) -> dict:
-        """{symbol: {key: launches}} of one proof of the shaped statement."""
+    def record_shapes(self, log_core: int, hash_names: list) -> dict:
+        """{symbol: {key: launches}} of one proof of the shaped statement
+        under each of ``hash_names``, together."""
         st, tr = self.mod("bench_airs").miden_shaped_statement(log_core)
         stark = self.mod("stark")
-        challenger = self.mod("transcript.challenger").DuplexChallenger([1, 2, 3, 4])
         kernels = self.kernels()
         for kern in kernels.values():
             kern.launches = 0
             kern.shapes.clear()
-        stark.prove(stark.MIDEN_PARAMS, st, tr, challenger)
+        for hash_name in hash_names:
+            challenger = self.mod("transcript.challenger").DuplexChallenger([1, 2, 3, 4])
+            params = dataclasses.replace(stark.MIDEN_PARAMS, hash_name=hash_name)
+            stark.prove(params, st, tr, challenger)
         torch.cuda.synchronize()
         return {symbol: dict(kern.shapes) for symbol, kern in kernels.items()}
 
@@ -296,10 +366,13 @@ def main(argv=None) -> int:
         cuda.build_all()
         report_build(label, cuda)
 
-    # -- 2. the shapes of one proof, per tree --------------------------------
-    shapes = {label: tree.record_shapes(args.log_core) for label, tree in trees.items()}
+    # -- 2. the shapes of one proof under each common hash, per tree ---------
+    common = set.intersection(*(set(sponges(t.mod)) for t in trees.values()))
+    hash_names = [h for perm, h in HASH_NAMES.items() if perm in common]
+    shapes = {label: tree.record_shapes(args.log_core, hash_names) for label, tree in trees.items()}
+    log(f"proofs: one under each of {hash_names}")
     for label in trees:
-        log(f"{label} launches per proof: " + ", ".join(
+        log(f"{label} launches over the proofs: " + ", ".join(
             f"{sym} {sum(s.values())}" for sym, s in shapes[label].items()))
 
     # -- 3. in turns at common shapes, and per proof -------------------------
@@ -309,7 +382,7 @@ def main(argv=None) -> int:
         gen = np.random.default_rng(seed)
         return lambda shape: F.to_torch(gen.integers(0, gl.P, size=shape, dtype=np.uint64), "cuda")
 
-    mods = {label: (t.mod("ntt.ntt"), t.mod("hash.poseidon2")) for label, t in trees.items()}
+    mods = {label: (t.mod("ntt.ntt"), sponges(t.mod)) for label, t in trees.items()}
     per_proof = {label: collections.Counter() for label in trees}
     for symbol in KERNELS:
         have = [label for label in trees if symbol in shapes[label]]
@@ -331,9 +404,12 @@ def main(argv=None) -> int:
             log(f"  {symbol} {key}: " + ", ".join(
                 f"{label} {t:.4f} ms x{shapes[label][symbol][key]}" for label, t in ms.items()) + speedup)
     for label in trees:
-        k3 = sum(v for s, v in per_proof[label].items() if s.startswith("poseidon2_"))
-        log(f"{label} ms per proof: " + ", ".join(
-            f"{s} {v:.4f}" for s, v in per_proof[label].items()) + f"; K3 entries together {k3:.4f}")
+        together = "; ".join(
+            f"{perm} entries together {sum(v for s, v in per_proof[label].items() if s.startswith(perm + '_')):.4f}"
+            for perm in INT32_MULS_PER_PERM
+        )
+        log(f"{label} ms over the proofs: " + ", ".join(
+            f"{s} {v:.4f}" for s, v in per_proof[label].items()) + f"; {together}")
     log(card)
     return 0
 

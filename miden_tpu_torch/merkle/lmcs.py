@@ -1,26 +1,31 @@
-"""Lifted Matrix Commitment Scheme (LMCS), Poseidon2 configuration.
+"""Lifted Matrix Commitment Scheme (LMCS): the Poseidon2, RPO-256 and
+RPX-256 configurations.
 
 One Merkle tree commits to several matrices of power-of-two heights
 (``miden_tpu.merkle.lmcs``; reference crates/lifted-stark/src/lmcs/).
 Shorter matrices are lifted to the max height by cyclic repetition in
 natural domain order: domain index ``d`` reads row ``d mod h``.
 
-- Leaf ``d``: overwrite-mode Poseidon2 sponge over the row of every matrix
-  at ``d mod h``, each row zero-padded to the rate (alignment 8). The sponge
-  streams rate-8 column blocks of each matrix in turn
+- Leaf ``d``: the configuration's overwrite-mode sponge over the row of
+  every matrix at ``d mod h``, each row zero-padded to the rate (alignment
+  8). The sponge streams rate-8 column blocks of each matrix in turn
   (:func:`_sponge_leaves_incremental`); the lifted, padded concatenation of
-  all matrices is never built. On the card each matrix is one launch of
-  K3's ``poseidon2_absorb_rows``.
+  all matrices is never built. On the card each matrix is one launch of the
+  permutation's ``absorb_rows`` kernel (K3, R1 or R2).
 - Inner layers: truncated-permutation 2-to-1 compression of neighbours, one
-  ``poseidon2_compress_rows`` launch per layer on the card.
+  ``compress_rows`` launch per layer on the card.
 - Openings: the full sibling path per query is gathered on the device
   (:func:`gather_query_data`) and the deduplicated witness of
   :func:`sibling_schedule` is selected on the host
   (:func:`emit_opening_hints`); :func:`verify_batch` replays it.
 
-Only the Poseidon2 configuration is ported. The RPO/RPX/BLAKE3/Keccak
-configurations of ``miden_tpu`` come with the slice that ports the device
-data hashes.
+Each configuration absorbs its leaves with its own permutation. This is
+where the port departs from ``miden_tpu``: there
+``_sponge_leaves_incremental`` (``miden_tpu/merkle/lmcs.py:373``) absorbs
+every algebraic configuration's leaves with Poseidon2 while its verifier
+rehashes them with the configuration's own host sponge, so its rpo256 and
+rpx256 proofs do not verify. The BLAKE3 / Keccak byte-hash configurations
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -32,17 +37,19 @@ import numpy as np
 import torch
 
 from ..field.goldilocks import to_numpy
-from ..hash import poseidon2, poseidon2_host
+from ..hash import poseidon2, poseidon2_host, rescue, rescue_host
 
 ALIGNMENT = 8  # sponge rate; rows are zero-padded to a multiple of this
 
 
 @dataclass(frozen=True)
 class LmcsHash:
-    """Hash configuration: the device compression of a layer plus host
-    twins for the verifier. Leaves absorb through Poseidon2's row sponge."""
+    """Hash configuration (reference: per-hash LMCS types,
+    air/src/config.rs:236-353): the device leaf sponge and layer compression
+    of one width-12 permutation, plus host twins for the verifier."""
 
     name: str
+    absorb_rows: object  # (state (12, max_h), m (h, w)) -> state: the leaf sponge
     compress_rows: object  # (2m, 4) -> (m, 4): rows 2i, 2i + 1 -> row i
     host_hash_elements: object  # list[int] -> [4]
     host_compress: object  # ([4], [4]) -> [4]
@@ -50,9 +57,24 @@ class LmcsHash:
 
 POSEIDON2_HASH = LmcsHash(
     "poseidon2",
+    poseidon2.absorb_rows,
     poseidon2.compress_rows,
     poseidon2_host.hash_elements,
     poseidon2_host.compress,
+)
+RPO_HASH = LmcsHash(
+    "rpo256",
+    rescue.RPO.absorb_rows,
+    rescue.RPO.compress_rows,
+    rescue_host.rpo_hash_elements_stateful,
+    rescue_host.rpo_compress,
+)
+RPX_HASH = LmcsHash(
+    "rpx256",
+    rescue.RPX.absorb_rows,
+    rescue.RPX.compress_rows,
+    rescue_host.rpx_hash_elements_stateful,
+    rescue_host.rpx_compress,
 )
 
 
@@ -60,7 +82,7 @@ def _not_ported(name: str):
     def config():
         raise NotImplementedError(
             f"the {name} LMCS configuration is not ported yet: it comes with "
-            "the slice that ports the device data hashes (RPO/RPX/BLAKE3/Keccak)"
+            "the slice that ports the byte hashes (BLAKE3/Keccak)"
         )
 
     return config
@@ -68,8 +90,8 @@ def _not_ported(name: str):
 
 HASH_CONFIGS = {
     "poseidon2": lambda: POSEIDON2_HASH,
-    "rpo256": _not_ported("rpo256"),
-    "rpx256": _not_ported("rpx256"),
+    "rpo256": lambda: RPO_HASH,
+    "rpx256": lambda: RPX_HASH,
     "blake3_256": _not_ported("blake3_256"),
     "keccak256": _not_ported("keccak256"),
 }
@@ -102,15 +124,18 @@ class LmcsTree:
         return self.layers[-1][0]
 
 
-def _sponge_leaves_incremental(matrices: list, heights: list, max_h: int) -> torch.Tensor:
-    """Leaf digests ``(max_h, 4)``: the sponge state ``(12, max_h)`` absorbs
-    each matrix's rate-8 column blocks in turn, each block lifted to max_h
-    rows; the ragged tail block is zero-padded. Equal to hashing the lifted,
-    padded concatenation since every aligned width is a multiple of the rate."""
-    assert all(m.shape[0] == h for m, h in zip(matrices, heights))
+def _sponge_leaves_incremental(
+    h: LmcsHash, matrices: list, heights: list, max_h: int
+) -> torch.Tensor:
+    """Leaf digests ``(max_h, 4)``: the sponge state ``(12, max_h)`` of the
+    configuration ``h`` absorbs each matrix's rate-8 column blocks in turn,
+    each block lifted to max_h rows; the ragged tail block is zero-padded.
+    Equal to hashing the lifted, padded concatenation since every aligned
+    width is a multiple of the rate."""
+    assert all(m.shape[0] == ht for m, ht in zip(matrices, heights))
     state = torch.zeros((12, max_h), dtype=torch.int64, device=matrices[0].device)
     for m in matrices:
-        state = poseidon2.absorb_rows(state, m)
+        state = h.absorb_rows(state, m)
     return state[:4].T.contiguous()
 
 
@@ -132,7 +157,7 @@ def build_tree(matrices: Sequence[torch.Tensor], hash: LmcsHash = POSEIDON2_HASH
     max_h = max(heights)
     for h in heights:
         assert max_h % h == 0 and (h & (h - 1)) == 0, "heights must be powers of two"
-    leaves = _sponge_leaves_incremental(matrices, heights, max_h)
+    leaves = _sponge_leaves_incremental(hash, matrices, heights, max_h)
     layers = _fold_layers(hash, leaves)
     return LmcsTree(matrices=matrices, heights=heights, widths=widths, layers=layers)
 

@@ -13,8 +13,13 @@
     with β under cyclic lifting.
 5.  Commit the quotient: interpolate, split into D contiguous degree-<N
     chunks, LDE all chunks in one batched NTT, commit.
-6.  Sample the OOD point z ∉ H ∪ sK; open [main, aux, quotient] at
-    [z, z·ω_H] through the PCS (DEEP + FRI + queries).
+6.  Sample the OOD point z ∉ H ∪ sK; open [preprocessed?, main, aux,
+    quotient] at [z, z·ω_H] through the PCS (DEEP + FRI + queries).
+
+A statement whose AIRs declare preprocessed columns takes the
+:class:`~.preprocessed.Preprocessed` bundle of
+:func:`~.preprocessed.build_preprocessed`: its root is observed before the
+statement, and its LDEs are read by the constraints and opened first.
 
 Everything from the traces to the query indices runs on the traces' device
 under a device challenger; the transcript is read back once, then the query
@@ -39,6 +44,7 @@ from . import pcs
 from .air import Air, Expr, Folder, MultiAir, VectorBackend
 from .domains import LiftedDomain, log_quotient_degree
 from .params import PcsParams
+from .preprocessed import validate_preprocessed
 
 
 @dataclass
@@ -133,9 +139,9 @@ def evaluate_quotient(
     """α-folded constraints / Z_H over the native quotient coset (the
     ``_evaluate_quotient_dev`` formulation of ``miden_tpu``): every
     constraint is evaluated with torch ops over blocks of
-    2^``QUOTIENT_BLOCK_LOG`` coset points at once. Returns (n·D, 2)."""
-    if pp_lde is not None:
-        raise NotImplementedError("preprocessed columns come with a later slice of the port")
+    2^``QUOTIENT_BLOCK_LOG`` coset points at once. ``pp_lde`` is the AIR's
+    committed preprocessed LDE, when it declares preprocessed columns.
+    Returns (n·D, 2)."""
     device = main_lde.device
     n = domain.trace_height
     d = 1 << log_d
@@ -149,6 +155,9 @@ def evaluate_quotient(
     if aux_lde is not None:
         aux_t = aux_lde[::stride].T.contiguous()
         aux_next = torch.roll(aux_t, -d, dims=1)
+    if pp_lde is not None:
+        pp_t = pp_lde[::stride].T.contiguous()
+        pp_next = torch.roll(pp_t, -d, dims=1)
 
     # Z_H(x_i) = shift^n·ω_D^{i mod D} − 1 takes D distinct values
     pts = pcs.coset_points(nd.bit_length() - 1, shift, device)
@@ -182,10 +191,14 @@ def evaluate_quotient(
             src = aux_next if offset else aux_t
             return Expr(backend, "ext", F.ext(src[2 * col, rows], src[2 * col + 1, rows]))
 
+        def preprocessed_fn(col, offset=0, rows=rows, backend=backend):
+            return Expr(backend, "base", (pp_next if offset else pp_t)[col, rows])
+
         folder = Folder(
             backend,
             main_fn=main_fn,
             aux_fn=aux_fn,
+            preprocessed_fn=preprocessed_fn if pp_lde is not None else None,
             periodic=[Expr(backend, "base", col[rows]) for col in periodic],
             publics=[Expr(backend, "base", publics[i]) for i in range(publics.shape[0])],
             randomness=[Expr(backend, "ext", randomness[i]) for i in range(randomness.shape[0])],
@@ -260,10 +273,19 @@ def prove(
 ) -> StarkOutput:
     """Prove a multi-AIR statement on ``device``. ``traces[i]``: numpy u64
     or int64 tensor (n_i, width_i), instance order. The challenger must be
-    pre-bound to the protocol parameters."""
-    if preprocessed is not None or any(a.preprocessed_width for a in statement.multi_air.airs):
-        raise NotImplementedError("preprocessed columns come with a later slice of the port")
+    pre-bound to the protocol parameters.
+
+    ``preprocessed``: the :class:`~.preprocessed.Preprocessed` bundle,
+    required exactly when some AIR declares preprocessed columns. Its
+    commitment is observed into Fiat-Shamir before the statement
+    (prover/mod.rs:282-285) but never enters the transcript: the verifier
+    holds it as trusted setup input."""
     airs = statement.multi_air.airs
+    if (preprocessed is not None) != any(a.preprocessed_width > 0 for a in airs):
+        raise ValueError(
+            "preprocessed bundle must be supplied exactly when some AIR "
+            "declares preprocessed columns"
+        )
     assert len(airs) == len(traces)
     traces = [_as_device(t, device) for t in traces]
     log_blowup = params.log_blowup
@@ -276,7 +298,12 @@ def prove(
     max_domain = LiftedDomain.canonical(max(log_heights), log_blowup)
     domains = [max_domain.sub_domain(log_heights[i]) for i in order]
 
+    if preprocessed is not None:
+        validate_preprocessed(statement, traces, preprocessed, params)
+
     dch = DeviceChallenger.from_host(challenger, device)
+    if preprocessed is not None:
+        dch.observe_arr(preprocessed.tree.root_dev())
     statement.observe(dch, log_heights)
     channel = DeviceProverChannel(dch)
 
@@ -315,6 +342,7 @@ def prove(
     rand_d = _ext_stack(randomness, device)
 
     # 4. Per-AIR quotient evaluation + Horner accumulation under lifting.
+    pp_for_air = preprocessed.trace_index_for_air() if preprocessed else {}
     acc = None
     for k, i in enumerate(order):
         with span("evaluate constraints", instance=k, air=type(airs[i]).__name__):
@@ -330,6 +358,7 @@ def prove(
                 pub_d,
                 rand_d[: air.num_randomness],
                 aux_values[k],
+                preprocessed.tree.matrices[pp_for_air[i]] if air.preprocessed_width else None,
             )
             if log_ds[k] < log_d:
                 q = upsample_evals(q, dom.lde_shift, log_d - log_ds[k])
@@ -347,7 +376,8 @@ def prove(
     z = channel.sample_ext()
     channel.check("ood point outside domains", _ood_valid_flag(max_domain, z))
     z_next = F.ext_mul_base(z, F.const(max_domain.trace_generator, device=device))
-    input_trees = [main_tree, aux_tree, quotient_tree]
+    # opened tree order: [preprocessed?, main, aux, quotient] (prover/mod.rs:552-554)
+    input_trees = ([preprocessed.tree] if preprocessed else []) + [main_tree, aux_tree, quotient_tree]
     with span("open"):
         fri_trees, idx_arr = pcs.open_with_channel(params, max_domain, input_trees, [z, z_next], channel)
 

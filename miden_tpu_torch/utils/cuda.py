@@ -43,29 +43,48 @@ def _nvcc() -> str:
     return path
 
 
-def _write_generated_headers() -> None:
-    """Headers derived from the Python protocol constants (one source of
-    truth for the round constants of hash/constants.py)."""
-    from ..hash import constants as C
+def _write_header(name: str, source: str, defines: dict) -> None:
+    """``_build/<name>``: one ``#define`` per entry of ``defines`` (a list of
+    values, or a list of rows), rewritten only when its text changes."""
 
     def arr(vals):
+        if isinstance(vals[0], (list, tuple)):
+            return "{" + ", ".join(arr(v) for v in vals) + "}"
         return "{" + ", ".join(f"0x{v:016x}ull" for v in vals) + "}"
 
-    ext_rows = [C.ARK_EXT_INITIAL[12 * r : 12 * r + 12] for r in range(4)] + [
-        C.ARK_EXT_TERMINAL[12 * r : 12 * r + 12] for r in range(4)
-    ]
-    text = (
-        "// Generated from miden_tpu_torch/hash/constants.py by utils/cuda.py.\n"
-        "#pragma once\n"
-        f"#define POSEIDON2_ARK_EXT {{{', '.join(arr(r) for r in ext_rows)}}}\n"
-        f"#define POSEIDON2_ARK_INT {arr(C.ARK_INT)}\n"
-        f"#define POSEIDON2_MAT_DIAG {arr(C.MAT_DIAG)}\n"
+    text = f"// Generated from {source} by utils/cuda.py.\n#pragma once\n" + "".join(
+        f"#define {key} {arr(vals)}\n" for key, vals in defines.items()
     )
-    path = BUILD_DIR / "poseidon2_constants.h"
+    path = BUILD_DIR / name
     if not path.exists() or path.read_text() != text:
         tmp = path.with_suffix(f".h.{os.getpid()}")
         tmp.write_text(text)
         os.replace(tmp, path)
+
+
+def _write_generated_headers() -> None:
+    """Headers derived from the Python protocol constants (one source of
+    truth for the round constants of hash/constants.py and
+    hash/rescue_constants.py)."""
+    from ..field import gl
+    from ..hash import constants as C
+    from ..hash import rescue_constants as RC
+
+    ext_rows = [C.ARK_EXT_INITIAL[12 * r : 12 * r + 12] for r in range(4)] + [
+        C.ARK_EXT_TERMINAL[12 * r : 12 * r + 12] for r in range(4)
+    ]
+    _write_header("poseidon2_constants.h", "miden_tpu_torch/hash/constants.py", {
+        "POSEIDON2_ARK_EXT": ext_rows,
+        "POSEIDON2_ARK_INT": C.ARK_INT,
+        "POSEIDON2_MAT_DIAG": C.MAT_DIAG,
+    })
+    # the kernels add round constants with gl::add, which takes canonical values
+    assert all(v < gl.P for row in RC.ARK1 + RC.ARK2 for v in row)
+    _write_header("rescue_constants.h", "miden_tpu_torch/hash/rescue_constants.py", {
+        "RESCUE_ARK1": RC.ARK1,
+        "RESCUE_ARK2": RC.ARK2,
+        "RESCUE_MDS_ROW0": RC.MDS_ROW0,
+    })
 
 
 def _lib_path(name: str) -> Path:

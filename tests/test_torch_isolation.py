@@ -36,6 +36,9 @@ def _sources():
         "from miden_tpu_torch.stdlib import assemble_with_stdlib, stdlib_event_handlers; "
         "from miden_tpu_torch.dsa.ecdsa_k256 import SigningKey; import miden_tpu_torch.bench_session",
         "from miden_tpu_torch.stark.debug import check_air; from miden_tpu_torch.vm.constraints import check_core_trace",
+        "from miden_tpu_torch.hash.rescue import RPO, RPX; from miden_tpu_torch.hash import rescue_host",
+        "from miden_tpu_torch.stark.preprocessed import build_preprocessed; "
+        "from miden_tpu_torch.bench_airs import square_lut_statement",
     ],
 )
 def test_import_pulls_in_neither_jax_nor_miden_tpu(stmt):

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain torch twins, on the card.
 
 K1 (``ntt_col_transform``), K2 (``ntt_transpose_twiddle`` inside the
-four-step decomposition) and K3's three entries (``poseidon2_permute``,
-``poseidon2_absorb_rows``, ``poseidon2_compress_rows``) are compared with
+four-step decomposition), K3's three entries (``poseidon2_permute``,
+``poseidon2_absorb_rows``, ``poseidon2_compress_rows``) and those of R1
+(RPO-256) and R2 (RPX-256) are compared with
 the plain versions on the same CUDA inputs; Goldilocks arithmetic is exact, so every
 comparison is exact equality. Every test skips without a card. On the card:
 
@@ -18,7 +19,7 @@ import torch
 
 from miden_tpu_torch.field import gl
 from miden_tpu_torch.field import goldilocks as F
-from miden_tpu_torch.hash import poseidon2, poseidon2_host
+from miden_tpu_torch.hash import poseidon2, poseidon2_host, rescue, rescue_host
 from miden_tpu_torch.merkle import lmcs
 from miden_tpu_torch.ntt import ntt
 from miden_tpu_torch.utils import cuda
@@ -29,7 +30,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture(autouse=True)
 def _card():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (kernels K1-K3 have no CPU mode)")
+        pytest.skip("needs an NVIDIA GPU (kernels K1-K3, R1 and R2 have no CPU mode)")
 
 
 def _rand(rng, shape):
@@ -177,3 +178,61 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 def test_build_is_idempotent():
     cuda.build_all()
     assert cuda.build_all() < 5.0  # nothing stale: no nvcc runs
+
+
+RESCUE = {"rpo": (rescue.RPO, rescue_host.rpo_permute, lmcs.RPO_HASH),
+          "rpx": (rescue.RPX, rescue_host.rpx_permute, lmcs.RPX_HASH)}
+
+
+@pytest.mark.parametrize("which", ["rpo", "rpx"])
+@pytest.mark.parametrize("n", [1, 129, 1000])
+def test_rescue_permute_kernel_matches_plain(which, n):
+    sponge, host, _ = RESCUE[which]
+    state = _rand(np.random.default_rng(n), (12, n))
+    before = sponge.PERMUTE_KERNEL.launches
+    out = sponge.permute(state)
+    torch.cuda.synchronize()
+    assert sponge.PERMUTE_KERNEL.launches == before + 1
+    assert _equal(out, sponge.permute_plain(state))
+    col = [int(v) for v in F.to_numpy(state[:, n - 1])]
+    assert [int(v) for v in F.to_numpy(out[:, n - 1])] == host(col)
+
+
+@pytest.mark.parametrize("which", ["rpo", "rpx"])
+@pytest.mark.parametrize("h,max_h,w", [(1, 1, 3), (1, 8, 8), (64, 256, 51), (1024, 1024, 9)])
+def test_rescue_absorb_rows_kernel_matches_plain(which, h, max_h, w):
+    sponge = RESCUE[which][0]
+    rng = np.random.default_rng(h * 31 + max_h + w)
+    state, m = _rand(rng, (12, max_h)), _rand(rng, (h, w))
+    before = sponge.ABSORB_KERNEL.launches
+    got = sponge.absorb_rows(state, m)
+    torch.cuda.synchronize()
+    assert sponge.ABSORB_KERNEL.launches == before + 1
+    assert _equal(got, sponge.absorb_rows_plain(state, m))
+
+
+@pytest.mark.parametrize("which", ["rpo", "rpx"])
+@pytest.mark.parametrize("m", [1, 1000])
+def test_rescue_compress_rows_kernel_matches_plain(which, m):
+    sponge = RESCUE[which][0]
+    cur = _rand(np.random.default_rng(m), (2 * m, 4))
+    before = sponge.COMPRESS_KERNEL.launches
+    got = sponge.compress_rows(cur)
+    torch.cuda.synchronize()
+    assert sponge.COMPRESS_KERNEL.launches == before + 1
+    assert _equal(got, sponge.compress_rows_plain(cur))
+
+
+@pytest.mark.parametrize("which", ["rpo", "rpx"])
+def test_rescue_tree_on_card_goes_through_its_row_kernels(which):
+    sponge, _, config = RESCUE[which]
+    rng = np.random.default_rng(6)
+    mats = [_rand(rng, s) for s in [(256, 51), (64, 22), (256, 0)]]
+    kernels = (sponge.PERMUTE_KERNEL, sponge.ABSORB_KERNEL, sponge.COMPRESS_KERNEL)
+    counts = [k.launches for k in kernels]
+    tree = lmcs.build_tree(mats, hash=config)
+    torch.cuda.synchronize()
+    assert [k.launches - c for k, c in zip(kernels, counts)] == [0, 2, 8]
+    ref = lmcs.build_tree([m.cpu() for m in mats], hash=config)
+    for mine, theirs in zip(tree.layers, ref.layers):
+        assert torch.equal(mine.cpu(), theirs)

@@ -122,6 +122,6 @@ def test_verify_rejects_a_tampered_row():
 
 def test_other_hash_configs_wait_for_their_slice():
     assert L.HASH_CONFIGS["poseidon2"]() is L.POSEIDON2_HASH
-    for name in ("rpo256", "rpx256", "blake3_256", "keccak256"):
+    for name in ("blake3_256", "keccak256"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             L.HASH_CONFIGS[name]()

@@ -112,12 +112,6 @@ def test_entry_points_default_to_the_card():
         prove(TEST_PARAMS, statement, traces, C.DuplexChallenger(SEED))
 
 
-def test_preprocessed_columns_wait_for_their_slice():
-    statement, traces = B.miden_shaped_statement(4, device="cpu")
-    with pytest.raises(NotImplementedError):
-        prove(TEST_PARAMS, statement, traces, C.DuplexChallenger(SEED), preprocessed=object(), device="cpu")
-
-
 # ---------------------------------------------------------------------------
 # Data-carrying stages on random inputs
 # ---------------------------------------------------------------------------
