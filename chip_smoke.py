@@ -59,6 +59,22 @@ Phases, one line each (plus details):
    states spread over it where the plain twin would take more than 30 s),
    with its time per proof of each kind; R1 / R2's permute entries, which no
    proof launches, at n = 2^16;
+9. the user entry surfaces on the card: (a) the command line on the program
+   of 5(b): ``python -m miden_tpu_torch`` compile -o, run, prove -o (on
+   the card, its wall time printed) and verify, each in a subprocess; the
+   written proof bytes equal 5(b)'s proof, verify exits 0 and exits 1 on a
+   proof with one flipped byte, the compiled bytes decode to the program's
+   digest; then the CLI's prove once in this process, with the kernel
+   counts set to 0 just before it and read just after (the path's every
+   entry launched, and no other); (b) the fib program (repeat.10) through
+   the MAST wire form and through a ``.masp`` package, each decoded
+   program proved on the card to 5(a)'s CPU bytes; (c) pause/resume of the
+   program of 5(b), a budget of 2^16 cycles and resumed by 2^16 until it
+   finishes, its stack and clk equal to one uninterrupted execution; (d)
+   the BLAKE3-256 and Keccak-256 LMCS trees over random matrices of the
+   VM's LDE shapes, (2^21, 51) and (2^16, 24), committed on the card,
+   opened at 27 queries and verified on the host, with card == CPU roots
+   at (2^10, 51) and (2^6, 24);
 8. the device-busy share of one more VM fib-18 prove_program under
    torch.profiler (last on the card: after the profiler every launch costs
    the host more), the JSON line of kernels, the card's name and power
@@ -510,6 +526,198 @@ def preprocessed_phase(torch, dev: str) -> None:
               f"2^{PP_FULL_LOG} rows proved on the card and verified")
 
 
+def entry_phase(torch, kernels, dev: str, vm_launches: dict, vm_bytes: bytes, small_cpu_bytes: bytes) -> None:
+    """Phase 9: the user entry surfaces on the card. ``vm_launches`` and
+    ``vm_bytes``: the launches and proof bytes of phase 5b's first timed
+    prove_program; ``small_cpu_bytes``: phase 5a's CPU proof bytes."""
+    import contextlib
+    import gc
+    import io
+
+    from miden_tpu_torch import cli
+    from miden_tpu_torch.field import gl
+    from miden_tpu_torch.stark import MIDEN_PARAMS
+    from miden_tpu_torch.vm import assemble, execute
+    from miden_tpu_torch.vm.mast_io import program_from_bytes, program_to_bytes
+    from miden_tpu_torch.vm.package import MastPackage, assemble_program_package
+    from miden_tpu_torch.vm.prove import prove_program
+    from miden_tpu_torch.vm.resume import BreakReason, execute_stepwise
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "smoke_out", "entry")
+    os.makedirs(work, exist_ok=True)
+    src = fib_program(VM_FULL_REPS)
+    masm = os.path.join(work, "vm_fib_18.masm")
+    with open(masm, "w") as fh:
+        fh.write(src)
+    full = assemble(src)
+
+    # -- (a) the command line, in subprocesses ----------------------------
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])))
+
+    def run_cli(*args) -> tuple:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "miden_tpu_torch", *args], cwd=root, env=env,
+                              capture_output=True, text=True, timeout=600)
+        return proc, time.perf_counter() - t0
+
+    def expect(proc, rc: int, what: str) -> list:
+        if proc.returncode != rc:
+            raise AssertionError(f"{what}: exit {proc.returncode}, expected {rc}\n{proc.stdout}\n{proc.stderr}")
+        return proc.stdout.splitlines()
+
+    mast, proof_path = os.path.join(work, "prog.mast"), os.path.join(work, "proof.bin")
+    out, compile_s = run_cli("compile", masm, "-o", mast)
+    printed_hash = expect(out, 0, "compile")[0]
+    with open(mast, "rb") as fh:
+        decoded = program_from_bytes(fh.read())
+    if tuple(decoded.hash) != tuple(full.hash) or printed_hash != "program hash: " + " ".join(
+            f"{v:016x}" for v in full.hash):
+        raise AssertionError("compile -o: the written program does not decode to the program's digest")
+    out, run_s = run_cli("run", masm)
+    want_top = fib_top(VM_FULL_REPS, gl.P)
+    if not expect(out, 0, "run")[-1].startswith(f"output stack: [{want_top}, "):
+        raise AssertionError(f"run printed {out.stdout!r}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    out, prove_s = run_cli("prove", masm, "-o", proof_path)
+    expect(out, 0, "prove")
+    with open(proof_path, "rb") as fh:
+        blob = fh.read()
+    if blob != vm_bytes:
+        raise AssertionError("the CLI's proof bytes differ from phase 5b's prove_program")
+    out, verify_s = run_cli("verify", proof_path)
+    expect(out, 0, "verify")
+    flipped = bytearray(blob)
+    flipped[8 + 32 + 32 + 16 * 8] ^= 1  # the low byte of the first stack output
+    bad_path = os.path.join(work, "flipped.bin")
+    with open(bad_path, "wb") as fh:
+        fh.write(bytes(flipped))
+    out, _ = run_cli("verify", bad_path)
+    if not expect(out, 1, "verify of a flipped proof")[0].startswith("VERIFICATION FAILED"):
+        raise AssertionError(f"verify of a flipped proof printed {out.stdout!r}")
+    log(f"  CLI subprocesses: compile -o {compile_s:.3f} s, run {run_s:.3f} s, prove {prove_s:.3f} s "
+        f"(interpreter start, kernel library load and prove_program on the card; this process held "
+        f"{held / 2**30:.3f} GiB of the card), verify {verify_s:.3f} s; proof bytes == phase 5b's, verify "
+        f"exits 0, a flipped byte exits 1, the compiled program decodes to the program's digest")
+    # the CLI's prove in this process, its launches counted
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["prove", masm, "-o", proof_path])
+    torch.cuda.synchronize()
+    inproc_s = time.perf_counter() - t0
+    launches = {name: kern.launches for name, (kern, _, _) in kernels.items()}
+    check_path(launches, "poseidon2", "the CLI's proof")
+    with open(proof_path, "rb") as fh:
+        if rc != 0 or fh.read() != vm_bytes:
+            raise AssertionError("the CLI's in-process proof differs from phase 5b's")
+    log(f"  launches of the CLI's prove (in this process, {inproc_s:.3f} s): {launches}; "
+        f"{'equal to' if launches == vm_launches else 'NOT equal to'} phase 5b's")
+    log_phase(f"phase 9a python -m miden_tpu_torch prove of VM fib repeat.{VM_FULL_REPS} on the card: "
+              f"{prove_s:.3f} s in a subprocess, proof == phase 5b's bytes, verify accepts, flipped byte rejected")
+
+    # -- (b) the wire forms -----------------------------------------------
+    small_src = fib_program(VM_SMALL_REPS)
+    decoded = {
+        "MAST wire form": program_from_bytes(program_to_bytes(assemble(small_src))),
+        ".masp package": MastPackage.from_bytes(
+            assemble_program_package("vm-fib-small", small_src).to_bytes()).program(),
+    }
+    for what, prog in decoded.items():
+        _, proof = prove_program(prog, params=MIDEN_PARAMS, device=dev)
+        if proof.to_bytes() != small_cpu_bytes:
+            raise AssertionError(f"the program decoded from its {what} proves to other bytes")
+    log_phase(f"phase 9b fib repeat.{VM_SMALL_REPS} through the MAST wire form and a .masp package: each "
+              f"decoded program proved on the card == phase 5a's CPU bytes")
+
+    # -- (c) pause/resume ---------------------------------------------------
+    t0 = time.perf_counter()
+    want = execute(full)
+    exec_s = time.perf_counter() - t0
+    budget = 1 << 16
+    t0 = time.perf_counter()
+    ctx = execute_stepwise(full, cycles=budget)
+    clks = []
+    while not ctx.done:
+        clks.append(ctx.clk)
+        ctx.resume(budget)
+    step_s = time.perf_counter() - t0
+    if ctx.reason != BreakReason.FINISHED or ctx.output.stack != want.stack or ctx.output.clk != want.clk:
+        raise AssertionError(f"stepwise execution ended {ctx.reason} at clk {ctx.clk}, not as execute()")
+    log_phase(f"phase 9c pause/resume of VM fib repeat.{VM_FULL_REPS} by 2^16 cycles: {len(clks)} pauses "
+              f"(clk {clks}), {step_s:.3f} s against {exec_s:.3f} s uninterrupted; stack and clk "
+              f"{want.clk} equal")
+
+    # -- (d) byte-hash commitments at a trace's size -----------------------
+    byte_hash_phase(torch, dev)
+
+
+def byte_hash_phase(torch, dev: str) -> None:
+    """Phase 9d: the BLAKE3-256 and Keccak-256 LMCS configurations on
+    random seeded matrices of vm-fib-18's LDE shapes, main (2^21, 51) and
+    chiplets (2^16, 24) lifted together: card == CPU roots at (2^10, 51) and
+    (2^6, 24), then at full size two synchronised commits, peak memory, 27
+    queries opened and verified by the port's host verifier, and a tampered
+    row rejected."""
+    from miden_tpu_torch.field import gl
+    from miden_tpu_torch.field import goldilocks as F
+    from miden_tpu_torch.merkle import lmcs as L
+    from miden_tpu_torch.stark import MIDEN_PARAMS
+    from miden_tpu_torch.transcript.challenger import DuplexChallenger, ProverChannel, VerifierChannel
+
+    rng = np.random.default_rng(2026)
+    small = [rng.integers(0, gl.P, size=s, dtype=np.uint64) for s in ((1 << 10, 51), (1 << 6, 24))]
+    shapes = ((1 << 21, 51), (1 << 16, 24))
+    big = [F.to_torch(rng.integers(0, gl.P, size=s, dtype=np.uint64), dev) for s in shapes]
+    raw = [int(v) for v in rng.integers(0, shapes[0][0], size=MIDEN_PARAMS.num_queries)]
+    for name in ("blake3_256", "keccak256"):
+        cfg = L.HASH_CONFIGS[name]()
+        roots = [L.build_tree([F.to_torch(m, d) for m in small], hash=cfg).root() for d in (dev, "cpu")]
+        if (roots[0] != roots[1]).any():
+            raise AssertionError(f"{name}: card and CPU roots differ at (2^10, 51) + (2^6, 24)")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tree = L.build_tree(big, hash=cfg)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        ch = ProverChannel(DuplexChallenger(SEED))
+        flat, meta = L.gather_query_data(tree, torch.tensor(raw, dtype=torch.int64, device=dev))
+        L.emit_opening_hints(ch, F.to_numpy(flat), meta, raw)
+        _, data = ch.finalize()
+        open_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rows = L.verify_batch(tree.root(), [51, 24], shapes[0][0], raw,
+                              VerifierChannel(data, DuplexChallenger(SEED)), hash=cfg)
+        verify_s = time.perf_counter() - t0
+        for d in set(raw):
+            for m, (h, _), r in zip(big, shapes, rows[d]):
+                if (F.to_numpy(m[d % h]) != r).any():
+                    raise AssertionError(f"{name}: an opened row differs from the matrix")
+        data.fields[0] = (data.fields[0] + 1) % gl.P
+        try:
+            L.verify_batch(tree.root(), [51, 24], shapes[0][0], raw,
+                           VerifierChannel(data, DuplexChallenger(SEED)), hash=cfg)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"{name}: a tampered row verified")
+        log_phase(f"phase 9d {name} LMCS over (2^21, 51) + (2^16, 24): card == CPU root at (2^10, 51) + "
+                  f"(2^6, 24); commit {', '.join(f'{t:.4f}' for t in times)} s (synchronised), peak memory "
+                  f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB above the matrices), "
+                  f"{len(set(raw))} queries opened in {open_s:.3f} s and verified on the host in "
+                  f"{verify_s:.3f} s, a tampered row rejected")
+        del tree, flat  # so that the next hash's peak holds only its own tree
+
+
 #: the cell each kernel entry's JSON row reports: the VM proof under the
 #: commitment hash whose trees the entry builds (K1, K2 and K3 under poseidon2)
 ROW_KIND = {"rpo": "vm_rpo", "rpx": "vm_rpx"}
@@ -859,6 +1067,7 @@ def main() -> int:
             record_shapes(kernels, vm_shapes)
             native_runs = dict(native_trace.RUNS)
     vm_peak = torch.cuda.max_memory_allocated()
+    vm_bytes = vm_proof.to_bytes()
     trace_times = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -908,6 +1117,9 @@ def main() -> int:
         "session": (session_launches, session_shapes), **rescue_proofs,
     }, errs, rand)
     log_phase(f"phase 7 kernels vs plain and timings at the proofs' shapes on {card}")
+
+    # -- 9. the entry surfaces: CLI, wire forms, pause/resume, byte hashes ---
+    entry_phase(torch, kernels, dev, vm_launches, vm_bytes, vm_cpu.to_bytes())
 
     # -- 8. device-busy share, then the result lines ---------------------------
     # the profiler runs last: after it the host's cost per launch stays up

@@ -1,5 +1,5 @@
-"""Lifted Matrix Commitment Scheme (LMCS): the Poseidon2, RPO-256 and
-RPX-256 configurations.
+"""Lifted Matrix Commitment Scheme (LMCS): the Poseidon2, RPO-256,
+RPX-256, BLAKE3-256 and Keccak-256 configurations.
 
 One Merkle tree commits to several matrices of power-of-two heights
 (``miden_tpu.merkle.lmcs``; reference crates/lifted-stark/src/lmcs/).
@@ -24,8 +24,16 @@ where the port departs from ``miden_tpu``: there
 ``_sponge_leaves_incremental`` (``miden_tpu/merkle/lmcs.py:373``) absorbs
 every algebraic configuration's leaves with Poseidon2 while its verifier
 rehashes them with the configuration's own host sponge, so its rpo256 and
-rpx256 proofs do not verify. The BLAKE3 / Keccak byte-hash configurations
-are not ported yet.
+rpx256 proofs do not verify.
+
+The BLAKE3-256 and Keccak-256 configurations (:func:`blake3_hash`,
+:func:`keccak_hash`) hash whole rows instead: every matrix is lifted and
+zero-padded to the alignment, the rows are concatenated
+(:func:`_lift_pad_concat`), and each leaf is the byte hash of its row's LE
+u64 bytes. A digest is 32 bytes carried as four LE u64 words, which are
+arbitrary u64s, not field elements: int64 holds them bit for bit. These
+trees serve as data commitments only; ``PcsParams`` rejects them for the
+proof pipeline, as ``miden_tpu``'s does.
 """
 
 from __future__ import annotations
@@ -37,7 +45,7 @@ import numpy as np
 import torch
 
 from ..field.goldilocks import to_numpy
-from ..hash import poseidon2, poseidon2_host, rescue, rescue_host
+from ..hash import blake3, blake3_host, keccak, keccak_host, poseidon2, poseidon2_host, rescue, rescue_host
 
 ALIGNMENT = 8  # sponge rate; rows are zero-padded to a multiple of this
 
@@ -53,6 +61,9 @@ class LmcsHash:
     compress_rows: object  # (2m, 4) -> (m, 4): rows 2i, 2i + 1 -> row i
     host_hash_elements: object  # list[int] -> [4]
     host_compress: object  # ([4], [4]) -> [4]
+    #: byte hashes: (max_h, W) lifted, padded rows -> (max_h, 4) leaves,
+    #: used instead of the sponge ``absorb_rows`` (None for the sponges)
+    hash_rows: object = None
 
 
 POSEIDON2_HASH = LmcsHash(
@@ -78,22 +89,49 @@ RPX_HASH = LmcsHash(
 )
 
 
-def _not_ported(name: str):
-    def config():
-        raise NotImplementedError(
-            f"the {name} LMCS configuration is not ported yet: it comes with "
-            "the slice that ports the byte hashes (BLAKE3/Keccak)"
-        )
+def _words_to_u64(d8: torch.Tensor) -> torch.Tensor:
+    """(n, 8) LE 32-bit words -> (n, 4) LE u64 words (bits in int64)."""
+    return d8[:, 0::2] | (d8[:, 1::2] << 32)
 
-    return config
 
+def _u64_to_words(d4: torch.Tensor) -> torch.Tensor:
+    """(n, 4) u64 words -> (n, 8) LE 32-bit words."""
+    return torch.stack([d4 & 0xFFFFFFFF, (d4 >> 32) & 0xFFFFFFFF], dim=2).reshape(-1, 8)
+
+
+def _byte_hash(name: str, dev_mod, host_mod) -> LmcsHash:
+    """BLAKE3-256 / Keccak-256 trees (``miden_tpu/merkle/lmcs.py:80-120``):
+    the leaf is the byte hash of the whole lifted, padded row; a layer
+    merges ``hash(left_bytes || right_bytes)``."""
+
+    def hash_rows(flat: torch.Tensor) -> torch.Tensor:
+        return _words_to_u64(dev_mod.hash_felt_rows(flat))
+
+    def compress_rows(cur: torch.Tensor) -> torch.Tensor:
+        pairs = _u64_to_words(cur).view(-1, 16)
+        return _words_to_u64(dev_mod.compress_pairs(pairs[:, :8], pairs[:, 8:]))
+
+    def words(digest: bytes) -> list:
+        return [int.from_bytes(digest[i : i + 8], "little") for i in range(0, 32, 8)]
+
+    def host_hash_elements(elements):
+        return words(host_mod.hash_elements(list(elements)))
+
+    def host_compress(a, b):
+        return words(host_mod.merge(*(b"".join(int(w).to_bytes(8, "little") for w in d) for d in (a, b))))
+
+    return LmcsHash(name, None, compress_rows, host_hash_elements, host_compress, hash_rows)
+
+
+BLAKE3_HASH = _byte_hash("blake3_256", blake3, blake3_host)
+KECCAK_HASH = _byte_hash("keccak256", keccak, keccak_host)
 
 HASH_CONFIGS = {
     "poseidon2": lambda: POSEIDON2_HASH,
     "rpo256": lambda: RPO_HASH,
     "rpx256": lambda: RPX_HASH,
-    "blake3_256": _not_ported("blake3_256"),
-    "keccak256": _not_ported("keccak256"),
+    "blake3_256": lambda: BLAKE3_HASH,
+    "keccak256": lambda: KECCAK_HASH,
 }
 
 
@@ -139,6 +177,18 @@ def _sponge_leaves_incremental(
     return state[:4].T.contiguous()
 
 
+def _lift_pad_concat(matrices: list, heights: list, max_h: int) -> torch.Tensor:
+    """Every matrix lifted to max_h rows by cyclic repetition, its width
+    zero-padded to the alignment, concatenated along columns: (max_h, W)."""
+    parts = []
+    for m, h in zip(matrices, heights):
+        if max_h > h:
+            m = m.repeat(max_h // h, 1)
+        pad = aligned_width(m.shape[1]) - m.shape[1]
+        parts.append(torch.nn.functional.pad(m, (0, pad)) if pad else m)
+    return torch.cat(parts, dim=1)
+
+
 def _fold_layers(h: LmcsHash, leaves: torch.Tensor) -> list:
     layers = [leaves]
     cur = leaves
@@ -157,7 +207,10 @@ def build_tree(matrices: Sequence[torch.Tensor], hash: LmcsHash = POSEIDON2_HASH
     max_h = max(heights)
     for h in heights:
         assert max_h % h == 0 and (h & (h - 1)) == 0, "heights must be powers of two"
-    leaves = _sponge_leaves_incremental(hash, matrices, heights, max_h)
+    if hash.hash_rows is None:
+        leaves = _sponge_leaves_incremental(hash, matrices, heights, max_h)
+    else:
+        leaves = hash.hash_rows(_lift_pad_concat(matrices, heights, max_h))
     layers = _fold_layers(hash, leaves)
     return LmcsTree(matrices=matrices, heights=heights, widths=widths, layers=layers)
 

@@ -39,6 +39,10 @@ def _sources():
         "from miden_tpu_torch.hash.rescue import RPO, RPX; from miden_tpu_torch.hash import rescue_host",
         "from miden_tpu_torch.stark.preprocessed import build_preprocessed; "
         "from miden_tpu_torch.bench_airs import square_lut_statement",
+        "import miden_tpu_torch.cli; from miden_tpu_torch.vm.mast_io import program_from_bytes; "
+        "from miden_tpu_torch.vm.package import MastPackage; from miden_tpu_torch.vm.resume import execute_stepwise",
+        "from miden_tpu_torch.hash import blake3, keccak, sha2, stateful; "
+        "from miden_tpu_torch.merkle.lmcs import BLAKE3_HASH, KECCAK_HASH",
     ],
 )
 def test_import_pulls_in_neither_jax_nor_miden_tpu(stmt):

@@ -515,13 +515,71 @@ STDLIB_PROGRAMS = {
 }
 
 
+#: the port's MAST digest of STDLIB_PROGRAMS["ecdsa"]: its verify_prehash
+#: takes the x(R') == r + n branch only where r + n does not carry out of 256
+#: bits and is below p, so the procedure (and the program) differ from
+#: miden_tpu's, whose wrapping add accepts forged signatures
+ECDSA_PROGRAM_DIGEST = (
+    12022394599022275205, 8542477626805261521, 14325601141032899070, 5888747325389681874,
+)
+
+
 @pytest.mark.parametrize("name", sorted(STDLIB_PROGRAMS))
 def test_stdlib_mast_digest_equals_miden_tpu(name):
     from miden_tpu.stdlib import assemble_with_stdlib as j_assemble
     from miden_tpu_torch.stdlib import assemble_with_stdlib
 
     src = STDLIB_PROGRAMS[name]()
-    assert assemble_with_stdlib(src).hash == j_assemble(src).hash
+    if name == "ecdsa":  # the repaired verify_prehash
+        assert tuple(assemble_with_stdlib(src).hash) == ECDSA_PROGRAM_DIGEST != tuple(j_assemble(src).hash)
+    else:
+        assert assemble_with_stdlib(src).hash == j_assemble(src).hash
+
+
+def forged_ecdsa_vector(t: int = 0x1234567, s: int = 0x55, e: int = 0x77) -> tuple:
+    """(e, r, s, Q) that only a wrapping r + n accepts: R = [t]G with
+    r = x(R) + (2^256 - n) < n, and Q = [(s·t − e)/r mod n]G, so the
+    commitment point [e/s]G + [r/s]Q is R and x(R) = r + n − 2^256."""
+    from miden_tpu_torch.dsa.ecdsa_k256 import N, _point_mul
+
+    while True:
+        r = _point_mul(t)[0] + (2**256 - N)
+        if r < N:
+            break
+        t += 1
+    q = (s * t - e) * pow(r, -1, N) % N
+    return e, r, s, _point_mul(q)
+
+
+def ecdsa_values_source(e: int, r: int, s: int, q: tuple, base: int = 100) -> str:
+    body = "".join(_store8(v, base + 8 * j) for j, v in enumerate((e, r, s, *q)))
+    return (
+        "use miden::core::crypto::dsa::ecdsa_secp256k1\n"
+        f"begin {body}push.{base} exec.ecdsa_secp256k1::verify_prehash end"
+    )
+
+
+def test_forged_ecdsa_signature_is_rejected_in_the_vm_and_on_the_host():
+    """The port's in-VM verifier and its host verifier both reject the
+    forged vector; miden_tpu's in-VM verifier accepts it (pinned: this
+    fails once miden_tpu is repaired). Honest signatures still verify.
+    The legitimate x(R') ≥ n branch (x(R') = r + n < p) has no findable
+    vector: it needs x(R') in [n, p), a chance of about 2^-127."""
+    from miden_tpu.stdlib import assemble_with_stdlib as j_assemble
+    from miden_tpu.stdlib import stdlib_event_handlers as j_handlers
+    from miden_tpu.vm.processor import execute as j_execute
+    from miden_tpu_torch.dsa.ecdsa_k256 import PublicKey, Signature, is_on_curve
+    from miden_tpu_torch.stdlib import assemble_with_stdlib, stdlib_event_handlers
+    from miden_tpu_torch.vm.processor import execute
+
+    e, r, s, q = forged_ecdsa_vector()
+    assert is_on_curve(q)
+    assert not PublicKey(*q).verify_prehash(e.to_bytes(32, "big"), Signature(r, s, 0))
+    src = ecdsa_values_source(e, r, s, q)
+    assert execute(assemble_with_stdlib(src), [], event_handlers=stdlib_event_handlers()).stack[0] == 0
+    assert j_execute(j_assemble(src), [], event_handlers=j_handlers()).stack[0] == 1
+    honest = ecdsa_source(b"miden-tpu-ecdsa-forgery-test")
+    assert execute(assemble_with_stdlib(honest), [], event_handlers=stdlib_event_handlers()).stack[0] == 1
 
 
 def test_stdlib_handlers_are_the_precompile_subset():
