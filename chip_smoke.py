@@ -53,8 +53,23 @@ Phases, one line each (plus details):
    heights, launches, spans, peak memory, proof size, and
    verify_program(proof, deferred=session) accepting where a tampered root
    and a missing session are rejected;
+10. the MASM standard library (``miden_tpu_torch.bench_stdlib``): (a)
+   stdlib-small, the u64 program of tests/test_stdlib.py (u64 mul, add,
+   divmod through the u64_div handler, sys::truncate_stack), at MIDEN_PARAMS
+   on the card and on the CPU, bytes equal; (b) stdlib-blake3-18, the
+   reference's blake3_1to1 benchmark program (28 blake3::hash_1to1 calls,
+   252,138 cycles, log heights [18, 18, 13]: the first full-height chiplets
+   AIR) at MIDEN_PARAMS: a traced warm-up and two timed prove_program calls,
+   the execute_and_trace span, launches, peak memory, proof size, the digest
+   against 28 host BLAKE3s, verified, and the chiplets and Poseidon2 AIRs'
+   LogUp aux traces card == CPU at full height; (c) stdlib-host, one
+   program through mem, word, u128, sorted_array, mmr, smt, sha256,
+   poseidon2 and an aead round trip, proved on the card, outputs equal to
+   the host's, verified;
+   (d) MerkleTree over 2^16 seeded leaves on the card (K3 compress_rows),
+   every layer equal to the CPU's;
 7. hold each kernel against its plain twin and time it, with its bound, at
-   every shape phases 4, 5(b), 5c and 6(b) launched it with (K1 printed at
+   every shape phases 4, 5(b), 5c, 6(b) and 10(b) launched it with (K1 printed at
    each shape; a sponge entry over every state of a launch, or over 2^14
    states spread over it where the plain twin would take more than 30 s),
    with its time per proof of each kind; R1 / R2's permute entries, which no
@@ -718,6 +733,158 @@ def byte_hash_phase(torch, dev: str) -> None:
         del tree, flat  # so that the next hash's peak holds only its own tree
 
 
+def vm_aux_card_vs_cpu(trace, dev: str) -> str:
+    """The chiplets and Poseidon2 AIRs of a VM trace build their LogUp aux
+    traces on the card and on the CPU from the same seeded randomness: the
+    aux columns and aux values must be bit-equal."""
+    from miden_tpu_torch.field import gl
+    from miden_tpu_torch.field import goldilocks as F
+    from miden_tpu_torch.vm.prove import _statement
+
+    statement = _statement(trace.program_hash, trace.stack_inputs, trace.stack_outputs,
+                           trace.kernel_digests, trace.deferred_root)
+    rng = np.random.default_rng(18)
+    checked = []
+    for air, main in zip(statement.multi_air.airs[1:], (trace.chiplets, trace.poseidon)):
+        rand = rng.integers(0, gl.P, size=(air.num_randomness, 2), dtype=np.uint64)
+        built = []
+        for device in (dev, "cpu"):
+            t0 = time.perf_counter()
+            aux, vals = air.build_aux_trace(F.to_torch(main, device), statement.publics, statement.aux_inputs,
+                                            list(F.to_torch(rand, device)))
+            built.append((aux, vals, time.perf_counter() - t0))
+        (aux, vals, card_s), (aux_c, vals_c, cpu_s) = built
+        if max_abs_err(aux.reshape(-1), aux_c.reshape(-1)) or max_abs_err(vals.reshape(-1), vals_c.reshape(-1)):
+            raise AssertionError(f"{type(air).__name__}: the card's and the CPU's aux traces differ")
+        checked.append(f"{type(air).__name__} ({main.shape[0]} rows, aux {tuple(aux.shape)}; card {card_s:.3f} s, "
+                       f"CPU {cpu_s:.3f} s)")
+    return ", ".join(checked)
+
+
+def stdlib_phase(torch, kernels, dev: str) -> tuple:
+    """Phase 10: the MASM standard library on the card
+    (``miden_tpu_torch.bench_stdlib``). (a) stdlib-small, the u64 program,
+    at MIDEN_PARAMS on the card and on the CPU: bytes equal, the u64 on
+    top; (b) stdlib-blake3-18, the reference's blake3_1to1 program (28
+    hashes, 252,138 cycles): a traced warm-up and two timed prove_program
+    calls, the digest against the host chain, verified, and the chiplets and
+    Poseidon2 AIRs' LogUp aux traces card == CPU; (c) stdlib-host, one
+    program through mem, word, u128, sorted_array, mmr, smt, sha256,
+    poseidon2 and an aead round trip, proved on the card, its outputs equal
+    to the host's, verified; (d) MerkleTree over 2^16 seeded leaves on the
+    card, every layer equal to the CPU's, with K3 compress_rows launches.
+    Returns the launches and launch shapes of (b)'s first timed call."""
+    from miden_tpu_torch import bench_stdlib as B
+    from miden_tpu_torch.merkle import MerkleTree
+    from miden_tpu_torch.stark import MIDEN_PARAMS
+    from miden_tpu_torch.stdlib import assemble_with_stdlib, stdlib_event_handlers
+    from miden_tpu_torch.utils.tracing import Recorder
+    from miden_tpu_torch.vm import native_trace
+    from miden_tpu_torch.vm.prove import prove_program, verify_program
+    from miden_tpu_torch.vm.trace import execute_and_trace
+
+    handlers = stdlib_event_handlers()
+
+    # -- (a) stdlib-small, card == CPU ---------------------------------------
+    small = assemble_with_stdlib(B.U64_PROGRAM)
+    out, on_card = prove_program(small, params=MIDEN_PARAMS, event_handlers=handlers, device=dev)
+    t0 = time.perf_counter()
+    _, on_cpu = prove_program(small, params=MIDEN_PARAMS, event_handlers=handlers, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if on_card.to_bytes() != on_cpu.to_bytes():
+        raise AssertionError("stdlib-small: the card's and the CPU's proof bytes differ")
+    if [int(v) for v in out.stack[:2]] != B.u64_program_top():
+        raise AssertionError(f"stdlib-small left {out.stack[:2]}, the host's u64 is {B.u64_program_top()}")
+    verify_program(on_card, params=MIDEN_PARAMS)
+    log_phase(f"phase 10a stdlib-small (u64 program) MIDEN_PARAMS: card == CPU ({len(on_card.to_bytes())} bytes), "
+              f"log heights {on_card.stark.log_heights}, u64 on top == host, verified; CPU prove {cpu_s:.3f} s")
+
+    # -- (b) stdlib-blake3-18 --------------------------------------------------
+    prog, inputs = assemble_with_stdlib(B.blake3_chain_program(B.BLAKE3_REPS)), B.blake3_inputs()
+    want = B.blake3_chain_digest(B.BLAKE3_REPS)
+    # the warm-up is the traced call: spans synchronize at their edges
+    t0 = time.perf_counter()
+    with Recorder() as rec:
+        prove_program(prog, inputs, params=MIDEN_PARAMS, event_handlers=handlers, device=dev)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    times, shapes = [], {name: {} for name in kernels}
+    for rep in range(2):
+        if rep == 0:
+            zero_counts(kernels)
+            native_trace.RUNS.update({k: 0 for k in native_trace.RUNS})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b3_out, proof = prove_program(prog, inputs, params=MIDEN_PARAMS, event_handlers=handlers, device=dev)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if rep == 0:
+            launches = {name: kern.launches for name, (kern, _, _) in kernels.items()}
+            record_shapes(kernels, shapes)
+            runs = dict(native_trace.RUNS)
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    verify_program(proof, params=MIDEN_PARAMS)
+    verify_s = time.perf_counter() - t0
+    if [int(v) for v in b3_out.stack[:8]] != want:
+        raise AssertionError(f"stdlib-blake3-18 left {b3_out.stack[:8]}, {B.BLAKE3_REPS} host BLAKE3s give {want}")
+    if b3_out.clk != B.BLAKE3_CYCLES or proof.stark.log_heights != B.BLAKE3_LOG_HEIGHTS:
+        raise AssertionError(f"stdlib-blake3-18 ran {b3_out.clk} cycles, log heights {proof.stark.log_heights}")
+    check_path(launches, "poseidon2", "stdlib-blake3-18")
+    _, b3_trace = execute_and_trace(prog, inputs, event_handlers=handlers)
+    log(f"  card == CPU LogUp aux traces at full height: {vm_aux_card_vs_cpu(b3_trace, dev)}")
+    med, trace_s = statistics.median(times), rec.totals["execute and trace"][0]
+    log("  spans (traced warm-up prove_program, synchronized at span edges): " + "; ".join(
+        f"{k} {v[0]:.4f} s" for k, v in rec.totals.items()))
+    for span_name in ("evaluate constraints", "aux trace of one AIR"):
+        log(f"  {span_name}, per AIR: " + ", ".join(
+            f"{air} {v[0]:.4f} s" for (name, air), v in rec.by_air.items() if name == span_name))
+    log(f"  launches per stdlib-blake3-18 proof: {launches}")
+    log(f"  C trace generator: {runs['block']} blocks, {runs['rows']} of {b3_out.clk} cycles' core rows "
+        f"({100 * runs['rows'] / b3_out.clk:.1f} %); the rest in the Python interpreter")
+    log_phase(f"phase 10b stdlib-blake3-18 MIDEN_PARAMS: {b3_out.clk} cycles, log heights "
+              f"{proof.stark.log_heights} (core, chiplets, poseidon); prove_program median {med:.4f} s (runs "
+              f"{', '.join(f'{t:.4f}' for t in times)}; traced warm-up {warm_s:.3f} s), execute_and_trace "
+              f"{trace_s:.4f} s (traced span; {100 * trace_s / med:.1f} % of the median call), peak memory "
+              f"{peak / 2**30:.3f} GiB, proof {len(proof.to_bytes())} bytes, verified in {verify_s:.3f} s, "
+              f"digest == {B.BLAKE3_REPS} host BLAKE3s")
+
+    # -- (c) stdlib-host ---------------------------------------------------------
+    src, advice, want = B.host_program()
+    t0 = time.perf_counter()
+    host_out, proof = prove_program(assemble_with_stdlib(src), advice=advice, params=MIDEN_PARAMS,
+                                    event_handlers=handlers, device=dev)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    if [int(v) for v in host_out.stack[:16]] != want or list(proof.stack_outputs) != want:
+        raise AssertionError("stdlib-host: the outputs differ from the host's sha256, poseidon2 and aead values")
+    verify_program(proof, params=MIDEN_PARAMS)
+    log_phase(f"phase 10c stdlib-host MIDEN_PARAMS: {host_out.clk} cycles, log heights {proof.stark.log_heights}, "
+              f"proved on the card in {host_s:.3f} s; mem, word, u128, sorted_array, mmr, smt results asserted "
+              f"in the VM, sha256 / poseidon2 / aead outputs == hashlib, poseidon2_host, AeadPoseidon2; verified")
+
+    # -- (d) MerkleTree on the card ----------------------------------------------
+    leaves = [tuple(int(v) for v in row) for row in
+              np.random.default_rng(10).integers(0, 2**63, size=(1 << 16, 4), dtype=np.uint64)]
+    zero_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree = MerkleTree(leaves)
+    card_s = time.perf_counter() - t0
+    compress = {name: kern.launches for name, (kern, _, _) in kernels.items() if kern.launches}
+    t0 = time.perf_counter()
+    cpu_tree = MerkleTree(leaves, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if list(tree.inner_nodes()) != list(cpu_tree.inner_nodes()) or tree.root != cpu_tree.root:
+        raise AssertionError("MerkleTree: the card's layers differ from the CPU's")
+    if set(compress) != {"poseidon2_compress_rows"}:
+        raise AssertionError(f"MerkleTree on the card launched {compress}, not K3 compress_rows alone")
+    log_phase(f"phase 10d MerkleTree over 2^16 leaves: card {card_s:.3f} s ({compress}), CPU {cpu_s:.3f} s, "
+              f"root and every layer equal")
+    return launches, shapes
+
+
 #: the cell each kernel entry's JSON row reports: the VM proof under the
 #: commitment hash whose trees the entry builds (K1, K2 and K3 under poseidon2)
 ROW_KIND = {"rpo": "vm_rpo", "rpx": "vm_rpx"}
@@ -774,8 +941,8 @@ def kernel_rows(torch, kernels, proofs, errs, rand) -> list:
     its launches and ms per proof of each kind. A sponge entry is held to
     its twin over every state of a launch unless the twin would take more
     than PLAIN_CHECK_S there (:func:`hold_sponge_launch`). ``proofs``:
-    kind -> (launches, shapes) for "vm", "shaped", "session", "vm_rpo" and
-    "vm_rpx"."""
+    kind -> (launches, shapes) for "vm", "shaped", "session", "vm_rpo",
+    "vm_rpx" and "blake3" (stdlib-blake3-18)."""
     from miden_tpu_torch.bench_kernels import (
         HBM_BYTES_PER_S, INT32_MULS_PER_PERM, bench_case, bound_ms, time_ms,
     )
@@ -1111,10 +1278,13 @@ def main() -> int:
 
     session_launches, session_shapes = session_phase(torch, kernels, dev, bench_session.PINNED)
 
+    # -- 10. the standard library: stdlib-small, -blake3-18, -host; MerkleTree --
+    blake3_proof = stdlib_phase(torch, kernels, dev)
+
     # -- 7. kernels vs plain, and timings, at the proofs' shapes --------------
     rows = kernel_rows(torch, kernels, {
         "vm": (vm_launches, vm_shapes), "shaped": (launches, shapes),
-        "session": (session_launches, session_shapes), **rescue_proofs,
+        "session": (session_launches, session_shapes), **rescue_proofs, "blake3": blake3_proof,
     }, errs, rand)
     log_phase(f"phase 7 kernels vs plain and timings at the proofs' shapes on {card}")
 

@@ -1,10 +1,11 @@
 """Dense and partial Merkle trees over Poseidon2 words.
 
 ``MerkleTree`` stores every layer (leaves last) like the reference
-(crates/crypto/src/merkle/merkle_tree.rs); the lower layers of large trees
-are folded as batched Poseidon2 compressions (``poseidon2.compress_rows`` on
-CPU tensors) until they are small enough that per-node host hashing is
-cheaper.
+(crates/crypto/src/merkle/merkle_tree.rs); the lower layers of trees of
+``_DEVICE_THRESHOLD`` leaves or more are folded as batched Poseidon2
+compressions (``poseidon2.compress_rows``, K3's Merkle-layer kernel on the
+card) on the tree's device until they are small enough that per-node host
+hashing is cheaper.
 
 ``PartialMerkleTree`` (crates/crypto/src/merkle/partial_mt/mod.rs) tracks an
 arbitrary set of authenticated leaves at mixed depths.
@@ -38,12 +39,12 @@ def _build_layers_host(leaves: list[Word]) -> list[list[Word]]:
     return layers
 
 
-def _build_layers_device(leaves: list[Word]) -> list[list[Word]]:
+def _build_layers_device(leaves: list[Word], device) -> list[list[Word]]:
     from ..field import goldilocks as F
     from ..hash import poseidon2
 
     layers = [leaves]
-    cur = F.to_torch(np.asarray(leaves, dtype=np.uint64), "cpu")
+    cur = F.to_torch(np.asarray(leaves, dtype=np.uint64), device)
     while cur.shape[0] > max(_DEVICE_THRESHOLD // 2, 1):
         cur = poseidon2.compress_rows(cur)
         layers.append([tuple(int(x) for x in row) for row in F.to_numpy(cur)])
@@ -52,16 +53,21 @@ def _build_layers_device(leaves: list[Word]) -> list[list[Word]]:
 
 
 class MerkleTree:
-    """Fully-balanced binary Merkle tree (merkle_tree.rs:24)."""
+    """Fully-balanced binary Merkle tree (merkle_tree.rs:24). ``device``
+    folds the lower layers of a tree of ``_DEVICE_THRESHOLD`` leaves or more
+    (the card unless the caller asks for ``"cpu"``); smaller trees hash on
+    the host."""
 
-    def __init__(self, leaves: Sequence[Iterable[int]]):
+    def __init__(self, leaves: Sequence[Iterable[int]], device="cuda"):
         n = len(leaves)
         if n < 2 or n & (n - 1):
             raise MerkleError(f"number of leaves must be a power of two ≥ 2, got {n}")
         words = [as_word(l) for l in leaves]
-        build = _build_layers_device if n >= _DEVICE_THRESHOLD else _build_layers_host
         # self._layers[0] = leaves, last = [root]
-        self._layers = build(words)
+        if n >= _DEVICE_THRESHOLD:
+            self._layers = _build_layers_device(words, device)
+        else:
+            self._layers = _build_layers_host(words)
 
     @property
     def root(self) -> Word:

@@ -1,18 +1,21 @@
-"""MASM standard library: the precompile subset.
+"""MASM standard library.
 
-A copy of ``miden_tpu``'s stdlib (the reference's crates/lib/core/asm/)
-restricted to the modules whose claims the deferred session proves:
-``crypto::dsa::ecdsa_secp256k1``, ``crypto::ec::secp256k1``,
-``crypto::hashes::keccak256`` and ``math::u256`` (everything they ``use``).
-Modules load from ``asm/`` next to this file and are addressed the way the
-reference addresses them, e.g.::
+A copy of ``miden_tpu``'s stdlib (the reference's crates/lib/core/asm/):
+every module except the in-VM STARK verifier's (``stark/*``,
+``pcs/fri/frie2f4`` and ``sys/vm/constraints_eval``), with the same module
+paths, procedure names and bodies, so each procedure's MAST digest equals
+``miden_tpu``'s (the repaired ECDSA ``verify_prehash`` excepted). Modules load
+from ``asm/`` next to this file and are addressed the way the reference
+addresses them, e.g.::
 
-    use miden::core::crypto::hashes::keccak256
-    begin ... exec.keccak256::merge ... end
+    use miden::core::math::u64
+    begin ... exec.u64::wrapping_add ... end
 
-The host-side event handlers these modules fire (keccak merge and
-hash_memory, secp256k1 add and mul, the ECDSA commitment) are provided by
-:func:`stdlib_event_handlers`.
+Host-side event handlers that stdlib procedures rely on (the u64 division
+hint, crates/lib/core/src/handlers/u64_div.rs; keccak merge and hash_memory;
+secp256k1 add and mul; the ECDSA commitment; AEAD decryption; the debug
+prints) are provided by :func:`stdlib_event_handlers`, and the advice of
+``collections::smt`` reads by :func:`smt_advice`.
 """
 
 from __future__ import annotations
@@ -54,6 +57,26 @@ def assemble_with_stdlib(source: str, **kwargs):
 # ---------------------------------------------------------------------------
 # Host event handlers
 # ---------------------------------------------------------------------------
+
+
+def _limbs(processor, lo_pos: int, hi_pos: int, what: str) -> int:
+    lo, hi = processor.stack[lo_pos], processor.stack[hi_pos]
+    if lo > U32_MAX or hi > U32_MAX:
+        raise ExecutionError(f"u64_div: {what} limbs are not u32s")
+    return (hi << 32) | lo
+
+
+def handle_u64_div(processor) -> None:
+    """``miden::core::math::u64::u64_div``: push quotient and remainder of
+    a/b onto the advice stack (q_hi first, so ``adv_push.2`` leaves
+    [q_lo, q_hi] on the operand stack). Reference semantics:
+    crates/lib/core/src/handlers/u64_div.rs."""
+    b = _limbs(processor, 1, 2, "divisor")
+    a = _limbs(processor, 3, 4, "dividend")
+    if b == 0:
+        raise ExecutionError("u64_div: division by zero")
+    q, r = divmod(a, b)
+    processor.advice.stack[0:0] = [q >> 32, q & U32_MAX, r >> 32, r & U32_MAX]
 
 
 def handle_keccak_merge(processor) -> None:
@@ -214,10 +237,86 @@ def handle_ecdsa_commit(processor) -> None:
     _push_point_advice(processor, pt)
 
 
+def handle_aead_decrypt(processor) -> None:
+    """``miden::core::crypto::aead::decrypt`` (aead.masm): read the
+    ciphertext blocks at src_ptr, decrypt + authenticate host-side
+    (crypto/aead.py AeadPoseidon2), and push the padded plaintext onto
+    the advice stack; raises ExecutionError when the tag is invalid.
+    The masm side re-encrypts the advice in-VM and asserts the tag, so
+    malicious advice cannot forge a decryption under proving."""
+    from ..crypto.aead import AeadError, AeadPoseidon2, EncryptedData, _pad
+
+    s = processor.stack
+    key = [int(s[1 + i]) for i in range(4)]
+    nonce = tuple(int(s[5 + i]) for i in range(4))
+    tag = tuple(int(s[9 + i]) for i in range(4))
+    src, n = int(s[13]), int(s[15])
+    if n > 1 << 16:
+        raise ExecutionError("aead::decrypt: block count exceeds budget")
+    ct = []
+    for i in range(8 * n):
+        addr = src + i
+        word = processor.memory.get(
+            (processor.ctx, addr - addr % 4), (0, 0, 0, 0)
+        )
+        ct.append(int(word[addr % 4]))
+    try:
+        plain = AeadPoseidon2(key).decrypt_elements(
+            EncryptedData("elements", ct, tag, nonce)
+        )
+    except AeadError as exc:
+        raise ExecutionError(f"aead::decrypt: {exc}") from exc
+    processor.advice.stack[0:0] = _pad(plain)
+
+
+def _debug_print(line: str) -> None:
+    import sys
+
+    print(line, file=sys.stderr)
+
+
+def handle_debug_print_stack(processor) -> None:
+    """``miden::core::debug::print_stack`` (debug.masm): print the full
+    operand stack, top first (the event id at s[0] is elided)."""
+    vals = [int(v) for v in processor.stack[1:]]
+    _debug_print(f"[debug] stack (depth {processor.depth}): {vals}")
+
+
+def handle_debug_print_mem(processor) -> None:
+    """``miden::core::debug::print_mem``: print words covering
+    ``[start, end)`` of the current context (start at s[1])."""
+    start, end = int(processor.stack[1]), int(processor.stack[2])
+    if end < start or end - start > 1 << 16:
+        raise ExecutionError("debug::print_mem: invalid range")
+    for addr in range(start - start % 4, end, 4):
+        word = processor.memory.get((processor.ctx, addr), None)
+        if word is not None:
+            _debug_print(f"[debug] mem[{addr}..{addr + 4}] = {list(word)}")
+
+
+def handle_debug_print_mem_all(processor) -> None:
+    """``miden::core::debug::print_mem_all``: print every initialized
+    word of the current context, address-ordered."""
+    for (ctx, addr), word in sorted(processor.memory.items()):
+        if ctx == processor.ctx:
+            _debug_print(f"[debug] mem[{addr}..{addr + 4}] = {list(word)}")
+
+
+def handle_debug_print_adv_stack(processor) -> None:
+    """``miden::core::debug::print_adv_stack``: print the first n
+    advice-stack elements (all when n = 0; n at s[1])."""
+    n = int(processor.stack[1])
+    vals = [int(v) for v in processor.advice.stack]
+    if n:
+        vals = vals[:n]
+    _debug_print(f"[debug] advice stack: {vals}")
+
+
 def stdlib_event_handlers() -> dict[int, object]:
     """Event-id -> handler map to pass as ``event_handlers=`` to execute /
     prove_program."""
     return {
+        event_id("miden::core::math::u64::u64_div"): handle_u64_div,
         event_id(
             "miden::core::crypto::hashes::keccak256::merge"
         ): handle_keccak_merge,
@@ -233,6 +332,15 @@ def stdlib_event_handlers() -> dict[int, object]:
         event_id(
             "miden::core::crypto::dsa::ecdsa_secp256k1::commit"
         ): handle_ecdsa_commit,
+        event_id("miden::core::crypto::aead::decrypt"): handle_aead_decrypt,
+        event_id("miden::core::debug::print_stack"): handle_debug_print_stack,
+        event_id("miden::core::debug::print_mem"): handle_debug_print_mem,
+        event_id(
+            "miden::core::debug::print_mem_all"
+        ): handle_debug_print_mem_all,
+        event_id(
+            "miden::core::debug::print_adv_stack"
+        ): handle_debug_print_adv_stack,
     }
 
 
@@ -302,3 +410,25 @@ def handle_keccak_hash_memory(processor) -> None:
     msg_node, stmt = keccak_statement_node(message, out_node.digest())
     _register(processor, msg_node)
     _register(processor, stmt)
+
+
+def smt_advice(smt, keys, advice=None):
+    """Installs the advice (Merkle paths + leaf preimages) for
+    ``collections::smt`` reads of ``keys`` against the host ``Smt``
+    (merkle/smt.py). Returns the AdviceProvider."""
+    from ..merkle.nodes import NodeIndex
+    from ..merkle.smt import SMT_DEPTH, smt_leaf_index
+    from ..vm.processor import AdviceProvider
+
+    adv = advice or AdviceProvider()
+    for key in keys:
+        k = tuple(int(v) for v in key)
+        index = smt_leaf_index(k)
+        proof = smt.open(k)
+        leaf_hash = proof.leaf.hash()
+        adv.store.add_merkle_path(index, leaf_hash, proof.path)
+        if proof.leaf.entries:
+            adv.map[tuple(leaf_hash)] = [
+                int(x) for ek, ev in proof.leaf.entries for x in (*ek, *ev)
+            ]
+    return adv

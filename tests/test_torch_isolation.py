@@ -43,6 +43,8 @@ def _sources():
         "from miden_tpu_torch.vm.package import MastPackage; from miden_tpu_torch.vm.resume import execute_stepwise",
         "from miden_tpu_torch.hash import blake3, keccak, sha2, stateful; "
         "from miden_tpu_torch.merkle.lmcs import BLAKE3_HASH, KECCAK_HASH",
+        "import miden_tpu_torch.crypto; from miden_tpu_torch.crypto import aead, ecdh, ies, rand_coin; "
+        "from miden_tpu_torch.stdlib import smt_advice, stdlib_modules",
     ],
 )
 def test_import_pulls_in_neither_jax_nor_miden_tpu(stmt):

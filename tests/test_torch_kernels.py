@@ -4,7 +4,8 @@ K1 (``ntt_col_transform``), K2 (``ntt_transpose_twiddle`` inside the
 four-step decomposition), K3's three entries (``poseidon2_permute``,
 ``poseidon2_absorb_rows``, ``poseidon2_compress_rows``) and those of R1
 (RPO-256) and R2 (RPX-256) are compared with
-the plain versions on the same CUDA inputs; Goldilocks arithmetic is exact, so every
+the plain versions on the same CUDA inputs, and ``MerkleTree`` folds its
+lower layers on the card; Goldilocks arithmetic is exact, so every
 comparison is exact equality. Every test skips without a card. On the card:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
@@ -236,3 +237,15 @@ def test_rescue_tree_on_card_goes_through_its_row_kernels(which):
     ref = lmcs.build_tree([m.cpu() for m in mats], hash=config)
     for mine, theirs in zip(tree.layers, ref.layers):
         assert torch.equal(mine.cpu(), theirs)
+
+
+def test_merkle_tree_on_the_card_folds_with_compress_rows():
+    from miden_tpu_torch.merkle import MerkleTree
+
+    rng = np.random.default_rng(11)
+    leaves = [tuple(int(v) for v in row) for row in rng.integers(0, gl.P, size=(1 << 11, 4), dtype=np.uint64)]
+    before = poseidon2.COMPRESS_KERNEL.launches
+    tree = MerkleTree(leaves)  # the card by default
+    assert poseidon2.COMPRESS_KERNEL.launches == before + 2  # 2^11 -> 2^10 -> 2^9 rows
+    cpu = MerkleTree(leaves, device="cpu")
+    assert tree.root == cpu.root and list(tree.inner_nodes()) == list(cpu.inner_nodes())

@@ -582,19 +582,27 @@ def test_forged_ecdsa_signature_is_rejected_in_the_vm_and_on_the_host():
     assert execute(assemble_with_stdlib(honest), [], event_handlers=stdlib_event_handlers()).stack[0] == 1
 
 
-def test_stdlib_handlers_are_the_precompile_subset():
+def test_stdlib_handlers_and_modules_equal_miden_tpu():
     from miden_tpu.stdlib import stdlib_event_handlers as j_handlers
+    from miden_tpu.stdlib import stdlib_modules as j_modules
     from miden_tpu_torch.stdlib import stdlib_event_handlers, stdlib_modules
 
-    handlers = stdlib_event_handlers()
-    assert set(handlers) < set(j_handlers())
-    assert sorted(h.__name__ for h in handlers.values()) == [
-        "handle_ecdsa_commit", "handle_keccak_hash_memory", "handle_keccak_merge",
-        "handle_secp256k1_add", "handle_secp256k1_mul",
-    ]
-    assert sorted(stdlib_modules()) == [
+    handlers, theirs = stdlib_event_handlers(), j_handlers()
+    assert set(handlers) == set(theirs)
+    assert {k: h.__name__ for k, h in handlers.items()} == {k: h.__name__ for k, h in theirs.items()}
+    # miden_tpu's 25 modules less the seven of the in-VM STARK verifier
+    verifier = {m for m in j_modules() if m.startswith(("miden::core::stark::", "miden::core::pcs::",
+                                                        "miden::core::sys::vm::"))}
+    assert len(j_modules()) == 25 and len(verifier) == 7
+    assert sorted(stdlib_modules()) == sorted(set(j_modules()) - verifier) == [
+        "miden::core::collections::mmr", "miden::core::collections::smt",
+        "miden::core::collections::sorted_array", "miden::core::crypto::aead",
         "miden::core::crypto::dsa::ecdsa_secp256k1", "miden::core::crypto::ec::secp256k1",
-        "miden::core::crypto::hashes::keccak256", "miden::core::math::u256",
+        "miden::core::crypto::hashes::blake3", "miden::core::crypto::hashes::keccak256",
+        "miden::core::crypto::hashes::poseidon2", "miden::core::crypto::hashes::sha256",
+        "miden::core::debug", "miden::core::math::bits", "miden::core::math::u128",
+        "miden::core::math::u256", "miden::core::math::u64", "miden::core::mem", "miden::core::sys",
+        "miden::core::word",
     ]
 
 

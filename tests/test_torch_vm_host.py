@@ -11,6 +11,7 @@ comparisons are exact.
 
 import numpy as np
 import pytest
+import torch
 
 from miden_tpu.merkle import MerkleStore as JMerkleStore
 from miden_tpu.merkle import MerkleTree as JMerkleTree
@@ -88,7 +89,18 @@ def test_mtree_program_digest_equals_miden_tpu():
 def test_large_merkle_tree_equals_miden_tpu():
     # 2^11 leaves: the port folds the lower layers as batched compressions
     leaves = [(i, 2 * i, 3 * i, 4 * i) for i in range(1 << 11)]
-    assert MerkleTree(leaves).root == JMerkleTree(leaves).root
+    mine, theirs = MerkleTree(leaves, device="cpu"), JMerkleTree(leaves)
+    assert mine.root == theirs.root
+    assert list(mine.inner_nodes()) == list(theirs.inner_nodes())
+
+
+def test_large_merkle_tree_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works")
+    leaves = [(i, 0, 0, 0) for i in range(1 << 10)]
+    with pytest.raises((AssertionError, RuntimeError)):
+        MerkleTree(leaves)
+    assert MerkleTree(leaves[:512]).root == JMerkleTree(leaves[:512]).root  # below the threshold: the host
 
 
 BLOCK_OPS = [("PUSH", 3), ("PUSH", 4), "ADD", ("PUSH", 7), "MUL", "U32SPLIT", "ADD", "SWAP", "DROP"]
