@@ -11,7 +11,8 @@ Phases, one line each (plus details):
    K3 poseidon2_permute, poseidon2_absorb_rows, poseidon2_compress_rows, and
    the same three entries of R1 RPO-256 and R2 RPX-256) against its plain
    torch twin on the card, exact equality, on inputs from a seeded numpy
-   generator;
+   generator, and R1 / R2's entries also on states of edge values
+   (hash.rescue.hold_edge_states) against the twin and rescue_host;
 3. prove miden_shaped_statement(10) at MIDEN_PARAMS on the card and on the
    CPU: the proof bytes must be equal and the port's verifier must accept;
 4. prove miden_shaped_statement(18) at MIDEN_PARAMS on the card (core
@@ -1033,7 +1034,7 @@ def main() -> int:
     from miden_tpu_torch.bench_airs import miden_shaped_statement
     from miden_tpu_torch.field import gl
     from miden_tpu_torch.field import goldilocks as F
-    from miden_tpu_torch.hash import poseidon2, rescue
+    from miden_tpu_torch.hash import poseidon2, rescue, rescue_host
     from miden_tpu_torch.ntt import ntt
     from miden_tpu_torch.stark import MIDEN_PARAMS, prove, verify
     from miden_tpu_torch.stark.proof_io import proof_to_bytes
@@ -1107,6 +1108,12 @@ def main() -> int:
             err = max_abs_err(sponge.compress_rows_kernel(cur), sponge.compress_rows_plain(cur))
             errs[f"{perm}_compress_rows"] = max(errs[f"{perm}_compress_rows"], err)
             checked[f"{perm}_compress_rows"] += 1
+        # edge states (0, 1, p - 1, p - 2, 2^32 - 1, 2^32, 2^48, 2^63 - 1, 2^63, all-equal and
+        # mixed lanes): the carry paths of the squares and lazy sums, against the twin and rescue_host
+        host = rescue_host.rpo_permute if perm == "rpo" else rescue_host.rpx_permute
+        for entry, err in rescue.hold_edge_states(sponge, host, dev).items():
+            errs[f"{perm}_{entry}"] = max(errs[f"{perm}_{entry}"], err)
+            checked[f"{perm}_{entry}"] += 1
     for log_n in range(1, ntt.MAX_LOG_SINGLE + 1):
         for width in (1, 3, 51, 130):
             x = rand((1 << log_n, width))

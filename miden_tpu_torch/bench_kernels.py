@@ -1,24 +1,28 @@
 """Kernel timings on one card: the cases ``chip_smoke.py`` times, and an A/B
 of this tree's kernels against an earlier checkout's.
 
-    python3 -m miden_tpu_torch.bench_kernels --parent DIR [--log-core 18]
+    python3 -m miden_tpu_torch.bench_kernels --parent DIR
 
 ``DIR`` is the root of a checkout of an earlier commit of this repository
 (for example ``git archive <commit> | tar -x -C _checkout/parent``). Its
 ``miden_tpu_torch`` is loaded beside this one under another name, builds its
 kernels into its own ``_build`` and is driven only through its own entry
 points, so the A/B does not depend on its kernels' interfaces or tilings.
-The script
+The A/B
 
-1. builds both trees' kernels and prints for each build the ptxas registers
-   and spills of each kernel (K1-K3, and R1 RPO-256 and R2 RPX-256 where the
-   tree has ``csrc/rescue.cu``), and the SASS opcode counts of each kernel
-   and of one Goldilocks multiply and one add (probe kernels compiled
-   against the tree's ``goldilocks.cuh``, from ``cuobjdump -sass``);
-2. proves ``miden_shaped_statement(log_core)`` at ``MIDEN_PARAMS`` once
-   under each commitment hash both trees have (poseidon2, and rpo256 and
-   rpx256 where both have R1 / R2) with each tree, to record the shapes each
-   launches its kernels with;
+1. builds both trees' kernels and prints for each build the ptxas registers,
+   stack frame and spills of each kernel (K1-K3, and R1 RPO-256 and R2
+   RPX-256 where the tree has ``csrc/rescue.cu``), and the SASS opcode counts
+   of each kernel and of one Goldilocks multiply and one add (probe kernels
+   compiled against the tree's ``goldilocks.cuh``, from ``cuobjdump -sass``);
+   then the SASS mix of one RPO and one RPX permutation of this tree's
+   ``csrc/rescue.cu`` (:func:`rescue_mix`);
+2. proves the VM fib program of vm-fib-18 (``bench_quotient.FIB_18``, core
+   2^18) with ``prove_program`` at ``MIDEN_PARAMS`` once under each
+   commitment hash both trees have (poseidon2, and rpo256 and rpx256 where
+   both have R1 / R2) with each tree, records the shapes each launches its
+   kernels with, and checks that the two trees' proof bytes are equal under
+   each hash;
 3. for every kernel both trees have, times the two in turns (earlier, this,
    this, earlier) on the same random inputs at each shape both launched,
    after checking that they agree; then each tree's kernel time over those
@@ -290,6 +294,133 @@ def report_build(label: str, cuda) -> None:
         log(f"  {label} SASS {fn} per operation (8 chained): {_summary(counts, 8)}")
 
 
+_FULL_OPCODE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9.]*)")
+
+#: SASS classes of the mix: the multiplier's 64-bit-result forms (a high
+#: half each), its other forms (32-bit products, and the moves, shifts and
+#: adds ptxas issues to it), and the integer ALU's
+MIX_CLASSES = {
+    "IMAD.WIDE/HI": lambda op: op.startswith(("IMAD.WIDE", "IMAD.HI")),
+    "IMAD other": lambda op: op.startswith("IMAD"),
+    "IADD3": lambda op: op.startswith("IADD3"),
+    "LOP3/SHF": lambda op: op.startswith(("LOP3", "SHF")),
+    "ISETP/SEL": lambda op: op.startswith(("ISETP", "SEL")),
+}
+
+#: probe kernels of the Rescue arithmetic, compiled with csrc/rescue.cu in
+#: their unit: each chains N operations (N = 8, or 2 for the cubic-extension
+#: and MDS ones) on its thread's own values (so that none runs on the
+#: uniform datapath), and the same kernel with N = 0 is its load/store
+#: frame.
+RESCUE_PROBE = r"""
+#include "rescue.cu"
+typedef uint64_t u64;
+template <int N> __device__ void sq_(u64* x) { u64 v = x[threadIdx.x];
+#pragma unroll
+  for (int k = 0; k < N; ++k) v = sq(v); x[threadIdx.x] = v; }
+template <int N> __device__ void mul_(u64* x) { u64 v = x[threadIdx.x]; const u64 y = x[threadIdx.x + 64];
+#pragma unroll
+  for (int k = 0; k < N; ++k) v = mul(v, y); x[threadIdx.x] = v; }
+template <int N> __device__ void canon_(u64* x) { u64 v = x[threadIdx.x];
+#pragma unroll
+  for (int k = 0; k < N; ++k) v = gl::canon(v) ^ (u64)k; x[threadIdx.x] = v; }
+template <int N> __device__ void add_(u64* x) { u64 v = x[threadIdx.x]; const u64 y = x[threadIdx.x + 64];
+#pragma unroll
+  for (int k = 0; k < N; ++k) v = gl::add(v, y); x[threadIdx.x] = v; }
+template <int N> __device__ void c3sqr_(u64* p) { u64* x = p + 16 * threadIdx.x; u64 a[3] = {x[0], x[1], x[2]};
+#pragma unroll
+  for (int k = 0; k < N; ++k) { u64 o[3]; c3_sqr(a, o); a[0] = o[0]; a[1] = o[1]; a[2] = o[2]; }
+  x[0] = a[0]; x[1] = a[1]; x[2] = a[2]; }
+template <int N> __device__ void c3mul_(u64* p) { u64* x = p + 16 * threadIdx.x; u64 a[3] = {x[0], x[1], x[2]};
+  const u64 b[3] = {x[3], x[4], x[5]}, bs[3] = {x[6], x[7], x[8]};
+#pragma unroll
+  for (int k = 0; k < N; ++k) { u64 o[3]; c3_mul(a, b, bs, o); a[0] = o[0]; a[1] = o[1]; a[2] = o[2]; }
+  x[0] = a[0]; x[1] = a[1]; x[2] = a[2]; }
+template <int N> __device__ void mds_(u64* p) { u64* x = p + 16 * threadIdx.x; u64 s[12];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) s[i] = x[i];
+#pragma unroll
+  for (int k = 0; k < N; ++k) mds(s);
+#pragma unroll
+  for (int i = 0; i < 12; ++i) x[i] = s[i]; }
+#define PROBE(op, n) \
+  extern "C" __global__ void mix_##op##_##n(u64* x) { op##_<n>(x); }
+#define PROBES(op, n) PROBE(op, n) PROBE(op, 0)
+PROBES(sq, 8) PROBES(mul, 8) PROBES(canon, 8) PROBES(add, 8) PROBES(c3sqr, 2) PROBES(c3mul, 2)
+PROBES(mds, 2)
+"""
+
+
+def _mix(counts: collections.Counter) -> collections.Counter:
+    """A full-opcode Counter folded into MIX_CLASSES, "other" and "all"."""
+    out = collections.Counter()
+    for op, n in counts.items():
+        cls = next((c for c, match in MIX_CLASSES.items() if match(op)), "other")
+        out[cls] += n
+        out["all"] += n
+    return out
+
+
+def rescue_mix(cuda) -> dict:
+    """SASS instructions of one RPO and one RPX permutation of this tree's
+    ``csrc/rescue.cu`` ({"rpo": Counter, "rpx": Counter} by
+    :data:`MIX_CLASSES`): each operation's count from the probe kernels of
+    :data:`RESCUE_PROBE` (the N-operation kernel less its N = 0 frame, over
+    N), times the operations of a permutation. A lane-round of RPO is x^7
+    (2 squares, 2 products) and x^(1/7) (63 squares, 9 products), each chain
+    ending in one gl::canon; a round adds 2 MDS and 24 gl::add. RPX's E
+    round is 12 gl::add and, per chunk, 2 cubic squares, 2 Karatsuba
+    products and the 3 gl::add of the operand sums. The moves and selects of
+    the lockstep chain and of the rotations are not in the count."""
+    src, cubin = cuda.BUILD_DIR / "rescue_mix.cu", cuda.BUILD_DIR / "rescue_mix.cubin"
+    src.write_text(RESCUE_PROBE)
+    built = subprocess.run(
+        [_tool("nvcc"), "-cubin", "-arch=sm_90a", "-std=c++17", "-O3", "-I", str(cuda.CSRC),
+         "-I", str(cuda.BUILD_DIR), "-o", str(cubin), str(src)],
+        capture_output=True, text=True,
+    )
+    if built.returncode != 0:
+        raise RuntimeError(f"nvcc failed for the Rescue probe kernels:\n{built.stdout}{built.stderr}")
+    text = subprocess.run([_tool("cuobjdump"), "-sass", str(cubin)],
+                          capture_output=True, text=True, check=True).stdout
+    fns, fn = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            fns[fn] = collections.Counter()
+        elif fn is not None:
+            m = _FULL_OPCODE.search(line)
+            if m:
+                fns[fn][m.group(1)] += 1
+    per_op = {}
+    for name in [f for f in fns if f.startswith("mix_") and not f.endswith("_0")]:
+        op, n = name[len("mix_"):].rsplit("_", 1)
+        full, frame = _mix(fns[name]), _mix(fns[f"mix_{op}_0"])
+        per_op[op] = collections.Counter({k: (full[k] - frame[k]) / int(n) for k in full})
+
+    def total(ops: dict) -> collections.Counter:
+        out = collections.Counter()
+        for op, count in ops.items():
+            for k, v in per_op[op].items():
+                out[k] += count * v
+        return out
+
+    fb = {"sq": 12 * 65, "mul": 12 * 11, "canon": 12 * 2, "mds": 2, "add": 24}
+    e = {"add": 12 + 4 * 3, "c3sqr": 8, "c3mul": 8}
+    last = {"mds": 1, "add": 12}
+    rpx = collections.Counter()
+    for ops, times in ((fb, 3), (e, 3), (last, 1)):
+        for k, v in ops.items():
+            rpx[k] += times * v
+    mixes = {"rpo": total({k: 7 * v for k, v in fb.items()}), "rpx": total(rpx)}
+    for op, counts in sorted(per_op.items()):
+        log(f"  SASS per operation {op}: " + ", ".join(f"{k} {v:g}" for k, v in sorted(counts.items())))
+    for perm, counts in mixes.items():
+        log(f"  SASS per permutation, {perm}: " + ", ".join(
+            f"{k} {v:.0f}" for k, v in sorted(counts.items())))
+    return mixes
+
+
 # ---------------------------------------------------------------------------
 # The A/B
 # ---------------------------------------------------------------------------
@@ -326,27 +457,27 @@ class Tree:
                 out[symbol] = kern
         return out
 
-    def record_shapes(self, log_core: int, hash_names: list) -> dict:
-        """{symbol: {key: launches}} of one proof of the shaped statement
-        under each of ``hash_names``, together."""
-        st, tr = self.mod("bench_airs").miden_shaped_statement(log_core)
-        stark = self.mod("stark")
+    def record_shapes(self, hash_names: list) -> tuple:
+        """({symbol: {key: launches}} of one VM fib-18 proof under each of
+        ``hash_names``, together; {hash name: proof bytes})."""
+        vm, prove = self.mod("vm"), self.mod("vm.prove")
+        program = vm.assemble(self.mod("bench_quotient").FIB_18)
         kernels = self.kernels()
         for kern in kernels.values():
             kern.launches = 0
             kern.shapes.clear()
+        proofs = {}
         for hash_name in hash_names:
-            challenger = self.mod("transcript.challenger").DuplexChallenger([1, 2, 3, 4])
-            params = dataclasses.replace(stark.MIDEN_PARAMS, hash_name=hash_name)
-            stark.prove(params, st, tr, challenger)
+            params = dataclasses.replace(self.mod("stark").MIDEN_PARAMS, hash_name=hash_name)
+            _, proof = prove.prove_program(program, params=params, device="cuda")
+            proofs[hash_name] = proof.to_bytes()
         torch.cuda.synchronize()
-        return {symbol: dict(kern.shapes) for symbol, kern in kernels.items()}
+        return {symbol: dict(kern.shapes) for symbol, kern in kernels.items()}, proofs
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True, type=Path)
-    ap.add_argument("--log-core", type=int, default=18)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_kernels: no CUDA device", file=sys.stderr)
@@ -358,19 +489,29 @@ def main(argv=None) -> int:
     ).stdout.strip()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    trees = {"parent": Tree(args.parent.resolve(), "parent_miden_tpu_torch"),
-             "this": Tree(Path(__file__).resolve().parents[1], __package__)}
+    trees = {
+        "parent": Tree(args.parent.resolve(), "parent_miden_tpu_torch"),
+        "this": Tree(Path(__file__).resolve().parents[1], __package__),
+    }
     # -- 1. builds and what the compiler made --------------------------------
     for label, tree in trees.items():
         cuda = tree.mod("utils.cuda")
         cuda.build_all()
         report_build(label, cuda)
+    rescue_mix(trees["this"].mod("utils.cuda"))
 
-    # -- 2. the shapes of one proof under each common hash, per tree ---------
+    # -- 2. the shapes of one VM proof under each common hash, per tree ------
     common = set.intersection(*(set(sponges(t.mod)) for t in trees.values()))
     hash_names = [h for perm, h in HASH_NAMES.items() if perm in common]
-    shapes = {label: tree.record_shapes(args.log_core, hash_names) for label, tree in trees.items()}
-    log(f"proofs: one under each of {hash_names}")
+    shapes, proofs = {}, {}
+    for label, tree in trees.items():
+        shapes[label], proofs[label] = tree.record_shapes(hash_names)
+        torch.cuda.empty_cache()  # a VM proof peaks near 70 GiB: leave the other tree the card
+    for hash_name in hash_names:
+        if proofs["parent"][hash_name] != proofs["this"][hash_name]:
+            raise AssertionError(f"vm-fib-18 under {hash_name}: the trees' proof bytes differ")
+    log(f"proofs: one VM fib-18 proof under each of {hash_names}; the trees' proof bytes are equal "
+        "under each (" + ", ".join(f"{h} {len(proofs['this'][h])} bytes" for h in hash_names) + ")")
     for label in trees:
         log(f"{label} launches over the proofs: " + ", ".join(
             f"{sym} {sum(s.values())}" for sym, s in shapes[label].items()))

@@ -144,4 +144,106 @@ __device__ __forceinline__ uint64_t mul_wrap(uint64_t a, uint64_t b) {
   return add_wrap(sub_wrap(lo, hi >> 32), (hi_lo << 32) - hi_lo);
 }
 
+// ---------------------------------------------------------------------------
+// Squares, and a reduction that leans on the multiplier (the Rescue kernels
+// of rescue.cu). Nothing above this line uses them.
+// ---------------------------------------------------------------------------
+
+// The 128-bit square of a as (lo, hi) from three 32x32 -> 64 partial
+// products with no addend, a0^2, a0*a1 and a1^2 (IMAD.WIDE.U32 ..., RZ: no
+// register pairs to assemble for an addend), the cross term added twice
+// through the carry chain on the integer ALU.
+__device__ __forceinline__ void sqr_wide(uint64_t a, uint64_t& lo, uint64_t& hi) {
+  const uint32_t a0 = (uint32_t)a, a1 = (uint32_t)(a >> 32);
+  uint32_t r0, r1, r2, r3;
+  asm("{\n\t"
+      ".reg .u64 x, c, y;\n\t"
+      ".reg .u32 c0, c1, y0, y1;\n\t"
+      "mul.wide.u32   x, %4, %4;\n\t"
+      "mul.wide.u32   c, %4, %5;\n\t"
+      "mul.wide.u32   y, %5, %5;\n\t"
+      "mov.b64        {%0, %1}, x;\n\t"
+      "mov.b64        {c0, c1}, c;\n\t"
+      "mov.b64        {y0, y1}, y;\n\t"
+      "add.cc.u32     %1, %1, c0;\n\t"
+      "addc.cc.u32    %2, y0, c1;\n\t"
+      "addc.u32       %3, y1, 0;\n\t"
+      "add.cc.u32     %1, %1, c0;\n\t"
+      "addc.cc.u32    %2, %2, c1;\n\t"
+      "addc.u32       %3, %3, 0;\n\t"
+      "}"
+      : "=&r"(r0), "=&r"(r1), "=&r"(r2), "=&r"(r3)
+      : "r"(a0), "r"(a1));
+  lo = ((uint64_t)r1 << 32) | r0;
+  hi = ((uint64_t)r3 << 32) | r2;
+}
+
+// lo + hi * 2^64 (mod p) as a value below 2^64 that may not be canonical,
+// with hi = h1 * 2^32 + h0, 2^64 = EPS and 2^96 = -1 (mod p): t = lo - h1
+// (borrow b), u = t + h0 * EPS (a 32x32 multiply-add on the multiplier,
+// carry c), and one signed correction (c - b) * EPS in place of reduce128's
+// two. A borrow means t is 2^64 = EPS too large, a carry that u is EPS too
+// small; u + (c - b) * EPS cannot wrap: with c = 1, b = 0, u < h0 * EPS <=
+// 2^64 - 2^33 + 1; with c = 0, b = 1, u >= t >= 2^64 - 2^32 + 1 > EPS.
+__device__ __forceinline__ uint64_t fold128(uint64_t lo, uint64_t hi) {
+  const uint32_t l0 = (uint32_t)lo, l1 = (uint32_t)(lo >> 32);
+  const uint32_t h0 = (uint32_t)hi, h1 = (uint32_t)(hi >> 32);
+  uint32_t r0, r1;
+  asm("{\n\t"
+      ".reg .u32 t0, t1, bm, u0, u1, d, dh, nd;\n\t"
+      "sub.cc.u32     t0, %2, %5;\n\t"          // t = lo - h1
+      "subc.cc.u32    t1, %3, 0;\n\t"
+      "subc.u32       bm, 0, 0;\n\t"            // -b
+      "mad.lo.cc.u32  u0, %4, 0xFFFFFFFF, t0;\n\t"  // u = t + h0 * EPS
+      "madc.hi.cc.u32 u1, %4, 0xFFFFFFFF, t1;\n\t"
+      "addc.u32       d, bm, 0;\n\t"            // d = c - b in {-1, 0, 1}
+      "shr.s32        dh, d, 31;\n\t"           // d * EPS = (-d) + (d < 0 ? -2^32 : 0)
+      "neg.s32        nd, d;\n\t"
+      "add.cc.u32     %0, u0, nd;\n\t"
+      "addc.u32       %1, u1, dh;\n\t"
+      "}"
+      : "=r"(r0), "=r"(r1)
+      : "r"(l0), "r"(l1), "r"(h0), "r"(h1));
+  return ((uint64_t)r1 << 32) | r0;
+}
+
+// A sum of 128-bit values, lo + hi * 2^64 + top * 2^128, with subtraction:
+// a caller that subtracts starts from an offset that is 0 mod p and larger
+// than everything it will subtract (Wide3::offset), so the sum never goes
+// below 0. value() reduces once, with 2^128 = -2^32 (mod p); top < 2^31.
+struct Wide3 {
+  uint64_t lo = 0, hi = 0;
+  uint32_t top = 0;
+
+  // p * 2^66 = 3 * 2^128 + (2^64 - 2^34 + 4) * 2^64: above 3 * 2^128, so
+  // three products of 64-bit values may be subtracted from it.
+  static __device__ __forceinline__ Wide3 offset() {
+    Wide3 w;
+    w.hi = 0xFFFFFFFC00000004ull;
+    w.top = 3;
+    return w;
+  }
+
+  __device__ __forceinline__ void add(uint64_t l, uint64_t h) {
+    asm("add.cc.u64 %0, %0, %3;\n\t"
+        "addc.cc.u64 %1, %1, %4;\n\t"
+        "addc.u32 %2, %2, 0;"
+        : "+l"(lo), "+l"(hi), "+r"(top)
+        : "l"(l), "l"(h));
+  }
+
+  __device__ __forceinline__ void sub(uint64_t l, uint64_t h) {
+    asm("sub.cc.u64 %0, %0, %3;\n\t"
+        "subc.cc.u64 %1, %1, %4;\n\t"
+        "subc.u32 %2, %2, 0;"
+        : "+l"(lo), "+l"(hi), "+r"(top)
+        : "l"(l), "l"(h));
+  }
+
+  // canonical; top * 2^32 < p for top < 2^31
+  __device__ __forceinline__ uint64_t value() const {
+    return canon(sub_wrap(fold128(lo, hi), (uint64_t)top << 32));
+  }
+};
+
 }  // namespace gl

@@ -23,8 +23,10 @@ crates/crypto/src/hash/algebraic_sponge/rescue/):
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..field import gl
 from ..field import goldilocks as F
 from . import rescue_constants as RC
 from .sponge import Sponge
@@ -145,3 +147,67 @@ RPX = Sponge("rpx", "rescue", rpx_permute_plain)
 
 rpo_permute = RPO.permute
 rpx_permute = RPX.permute
+
+
+# ---------------------------------------------------------------------------
+# Edge states: the check of R1 / R2 that uniform random states rarely reach
+# ---------------------------------------------------------------------------
+
+#: canonical values that reach the carry and borrow paths of the kernels'
+#: squares, reductions and lazy sums: 0, 1, p - 1 (high 32-bit half all
+#: ones), p - 2, 2^32 - 1 (low half all ones), 2^32, 2^48 (whose square is
+#: 2^96), 2^63 - 1 and 2^63
+EDGE_VALUES = (0, 1, 2**64 - 2**32, 2**64 - 2**32 - 1, 2**32 - 1, 2**32, 2**48, 2**63 - 1, 2**63)
+
+
+def edge_states() -> np.ndarray:
+    """(12, n) uint64 states of EDGE_VALUES: one with all 12 lanes equal
+    per value, and mixed ones (lane i of state j holds value (i + j) mod k
+    or (i * (j + 1)) mod k of the k values, or two values alternating)."""
+    k = len(EDGE_VALUES)
+    cols = [[v] * 12 for v in EDGE_VALUES]
+    cols += [[EDGE_VALUES[(i + j) % k] for i in range(12)] for j in range(k)]
+    cols += [[EDGE_VALUES[(i * (j + 1)) % k] for i in range(12)] for j in range(k)]
+    cols += [[EDGE_VALUES[j if i % 2 else (j + 1) % k] for i in range(12)] for j in range(k)]
+    return np.array(cols, dtype=np.uint64).T.copy()
+
+
+def hold_edge_states(sponge, host_permute, device: str) -> dict:
+    """Holds the three entries of ``sponge`` (:data:`RPO` / :data:`RPX`) on
+    ``device`` to their plain twins and to ``host_permute`` (the exact
+    int permutation of ``hash.rescue_host``) on :func:`edge_states`: permute
+    on the edge states; absorb_rows on those states (padded to 64 with
+    seeded ones) and a (16, 19) matrix of edge values (three rate blocks,
+    the last ragged, each state taking row j mod 16); compress_rows on 128
+    rows of edge values. Returns {entry: max |diff| against both}."""
+    k = edge_states()
+    pad = np.random.default_rng(64).integers(0, gl.P, size=(12, 64 - k.shape[1]), dtype=np.uint64)
+    states = np.concatenate([k, pad], axis=1)
+    mat = np.resize(np.array(EDGE_VALUES, dtype=np.uint64), (16, 19))
+    cur = states.T.reshape(-1, 4)[:128].copy()
+
+    def err(got, *wants) -> int:
+        g = F.to_numpy(got).astype(object)
+        return max(int(abs(g - np.asarray(w, dtype=np.uint64).astype(object)).max()) for w in wants)
+
+    cols = lambda a: [[int(v) for v in a[:, j]] for j in range(a.shape[1])]  # noqa: E731
+    host_perm = np.array([host_permute(c) for c in cols(k)], dtype=np.uint64).T
+    host_absorb = []
+    for j, col in enumerate(cols(states)):
+        row = [int(v) for v in mat[j % 16]]
+        for c0 in range(0, 19, 8):
+            block = row[c0 : c0 + 8]
+            col = host_permute(block + [0] * (8 - len(block)) + col[8:])
+        host_absorb.append(col)
+    host_compress = [host_permute([int(v) for v in cur[2 * i]] + [int(v) for v in cur[2 * i + 1]]
+                                  + [0] * 4)[:4] for i in range(64)]
+    t = lambda a: F.to_torch(a, device)  # noqa: E731
+    return {
+        "permute": err(sponge.permute_kernel(t(k)), F.to_numpy(sponge.permute_plain(t(k))), host_perm),
+        "absorb_rows": err(sponge.absorb_rows_kernel(t(states), t(mat)),
+                           F.to_numpy(sponge.absorb_rows_plain(t(states), t(mat))),
+                           np.array(host_absorb, dtype=np.uint64).T),
+        "compress_rows": err(sponge.compress_rows_kernel(t(cur)),
+                             F.to_numpy(sponge.compress_rows_plain(t(cur))),
+                             np.array(host_compress, dtype=np.uint64)),
+    }

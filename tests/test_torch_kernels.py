@@ -225,6 +225,19 @@ def test_rescue_compress_rows_kernel_matches_plain(which, m):
 
 
 @pytest.mark.parametrize("which", ["rpo", "rpx"])
+def test_rescue_kernels_match_plain_and_host_on_edge_states(which):
+    """0, 1, p - 1, p - 2, 2^32 - 1, 2^32, 2^48, 2^63 - 1, 2^63 in all-equal
+    and mixed lanes reach the carry paths of the squares and the lazy sums
+    that uniform random states rarely reach."""
+    sponge, host, _ = RESCUE[which]
+    kernels = (sponge.PERMUTE_KERNEL, sponge.ABSORB_KERNEL, sponge.COMPRESS_KERNEL)
+    counts = [k.launches for k in kernels]
+    errs = rescue.hold_edge_states(sponge, host, "cuda")
+    assert [k.launches - c for k, c in zip(kernels, counts)] == [1, 1, 1]
+    assert errs == {"permute": 0, "absorb_rows": 0, "compress_rows": 0}
+
+
+@pytest.mark.parametrize("which", ["rpo", "rpx"])
 def test_rescue_tree_on_card_goes_through_its_row_kernels(which):
     sponge, _, config = RESCUE[which]
     rng = np.random.default_rng(6)

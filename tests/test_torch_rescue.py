@@ -27,6 +27,7 @@ from miden_tpu.transcript import challenger as JC
 from miden_tpu_torch.field import gl
 from miden_tpu_torch.field import goldilocks as F
 from miden_tpu_torch.hash import rescue, rescue_host
+from miden_tpu_torch.hash.rescue import EDGE_VALUES
 from miden_tpu_torch.merkle import lmcs as L
 from miden_tpu_torch.transcript import challenger as C
 
@@ -245,3 +246,269 @@ def test_miden_tpu_rpo_tree_leaves_are_poseidon2_and_the_port_repairs_it():
     assert all(t != JH.rpo_hash_elements_stateful(r) for t, r in zip(theirs, rows))
     mine = F.to_numpy(L.build_tree([_t(m)], hash=L.RPO_HASH).layers[0])
     assert [[int(v) for v in r] for r in mine] == [JH.rpo_hash_elements_stateful(r) for r in rows]
+
+
+# ---------------------------------------------------------------------------
+# CPU rehearsal of the arithmetic of csrc/rescue.cu: Python-integer models of
+# the kernel's steps, written limb by limb as the CUDA does them (32-bit
+# carry chains, 64-bit registers that wrap), held to exact integer results
+# on the edge values and on 10^4 seeded values each.
+# ---------------------------------------------------------------------------
+
+M32, M64 = 2**32 - 1, 2**64 - 1
+EPS = 2**32 - 1
+#: operands of the models: canonical edge values and 64-bit values above p
+#: (the reductions' outputs are below 2^64, not always canonical)
+MODEL_EDGES = sorted(set(EDGE_VALUES) | {P, P + 1, M64, M64 - 1, 2**64 - 2**33, 2**16, 2**32 + 1,
+                                         2**33 - 2, EPS << 32, 2**62})
+
+
+def _seeded_u64(seed: int, n: int = 10_000, below: int = 2**64) -> list:
+    rng = np.random.default_rng(seed)
+    return [int(v) % below for v in rng.integers(0, 2**64, size=n, dtype=np.uint64)]
+
+
+def _sub_wrap(a, b):
+    """gl::sub_wrap: a - b, and EPS less when it borrows."""
+    return ((a - b) - (EPS if a < b else 0)) & M64
+
+
+def _sqr_wide(a):
+    """gl::sqr_wide: x = a0², c = a0·a1, y = a1² (64-bit partial products),
+    then the cross term added twice through the 32-bit carry chain
+    (addc.u32 drops its carry out)."""
+    a0, a1 = a & M32, a >> 32
+    x, c, y = a0 * a0, a0 * a1, a1 * a1
+    r0, r1 = x & M32, x >> 32
+    c0, c1, y0, y1 = c & M32, c >> 32, y & M32, y >> 32
+    t = r1 + c0
+    r1, cy = t & M32, t >> 32
+    t = y0 + c1 + cy
+    r2, cy = t & M32, t >> 32
+    r3 = (y1 + cy) & M32
+    t = r1 + c0
+    r1, cy = t & M32, t >> 32
+    t = r2 + c1 + cy
+    r2, cy = t & M32, t >> 32
+    r3 = (r3 + cy) & M32
+    return r0 | r1 << 32, r2 | r3 << 32
+
+
+def _mul_wide(a, b):
+    return (a * b) & M64, (a * b) >> 64
+
+
+def _fold128(lo, hi):
+    """gl::fold128 step by step: t = lo − h1 (sub.cc / subc.cc, CF a borrow),
+    bm = −borrow, u = t + h0·EPS (mad.lo.cc / madc.hi.cc, CF a carry),
+    d = bm + carry, then u + d·EPS as u + (−d) + (d >> 31 arithmetic)·2^32."""
+    l0, l1, h0, h1 = lo & M32, lo >> 32, hi & M32, hi >> 32
+    t0, cf = (l0 - h1) & M32, int(l0 < h1)
+    t1, cf = (l1 - cf) & M32, int(l1 < cf)
+    bm = -cf & M32
+    prod = h0 * 0xFFFFFFFF
+    t = (prod & M32) + t0
+    u0, cf = t & M32, t >> 32
+    t = (prod >> 32) + t1 + cf
+    u1, cf = t & M32, t >> 32
+    d = (bm + cf) & M32
+    dh = M32 if d >> 31 else 0
+    signed = d - 2**32 if d >> 31 else d
+    assert 0 <= (u0 | u1 << 32) + signed * EPS <= M64, "the correction wrapped"
+    t = u0 + (-d & M32)
+    r0, cf = t & M32, t >> 32
+    r1 = (u1 + dh + cf) & M32
+    return r0 | r1 << 32
+
+
+def _sqr(a):
+    return _fold128(*_sqr_wide(a))
+
+
+def _mul(a, b):
+    return _fold128(*_mul_wide(a, b))
+
+
+class _Wide3:
+    """gl::Wide3: lo, hi (64-bit) and top (32-bit) registers."""
+
+    def __init__(self, offset=False):
+        self.lo, self.hi, self.top = (0, 0xFFFFFFFC00000004, 3) if offset else (0, 0, 0)
+
+    def _set(self, v):
+        assert 0 <= v < 2**159, "the sum left its three registers"
+        self.lo, self.hi, self.top = v & M64, (v >> 64) & M64, v >> 128
+
+    def _int(self):
+        return self.lo | self.hi << 64 | self.top << 128
+
+    def add(self, lo, hi):
+        self._set(self._int() + (lo | hi << 64))
+
+    def sub(self, lo, hi):
+        self._set(self._int() - (lo | hi << 64))
+
+    def value(self):
+        assert self.top < 2**31
+        v = _sub_wrap(_fold128(self.lo, self.hi), self.top << 32)
+        return v - P if v >= P else v
+
+
+def _add(a, b):
+    """gl::add on canonical values."""
+    return _sub_wrap(a, P - b)
+
+
+def _c3_sqr(a):
+    s = [_sqr_wide(x) for x in a]
+    p01, p02, p12 = _mul_wide(a[0], a[1]), _mul_wide(a[0], a[2]), _mul_wide(a[1], a[2])
+    r = [_Wide3() for _ in range(3)]
+    for acc, terms in zip(r, ([s[0], p12, p12], [p01, p01, p12, p12, s[2]], [s[1], p02, p02, s[2]])):
+        for t in terms:
+            acc.add(*t)
+    return [acc.value() for acc in r]
+
+
+def _c3_mul(a, b):
+    bs = [_add(b[0], b[1]), _add(b[0], b[2]), _add(b[1], b[2])]
+    p00, p11, p22 = (_mul_wide(a[i], b[i]) for i in range(3))
+    m01 = _mul_wide(_add(a[0], a[1]), bs[0])
+    m02 = _mul_wide(_add(a[0], a[2]), bs[1])
+    m12 = _mul_wide(_add(a[1], a[2]), bs[2])
+    r = [_Wide3(offset=True) for _ in range(3)]
+    for acc, plus, minus in zip(r, ([p00, m12], [m01, m12], [m02, p11]),
+                                ([p11, p22], [p00, p11, p11], [p00])):
+        for t in plus:
+            acc.add(*t)
+        for t in minus:
+            acc.sub(*t)
+    return [acc.value() for acc in r]
+
+
+def _inv_steps() -> list:
+    """(squarings, tail, save) of each step of ``kInvSteps``, read from
+    ``csrc/rescue.cu``'s ``inv_step(k, m, tail, save)`` terms."""
+    import re
+    from pathlib import Path
+
+    src = (Path(rescue.__file__).resolve().parents[1] / "csrc" / "rescue.cu").read_text()
+    body = src[src.index("constexpr uint64_t kInvSteps"):]
+    body = body[:body.index(";")]
+    steps = re.findall(r"inv_step\((\d+),\s*(\d+),\s*(\w+),\s*(\d)\)", body)
+    assert [int(k) for k, *_ in steps] == list(range(7))
+    return [(int(m), tail, int(save)) for _, m, tail, save in steps]
+
+
+def _inv_sbox(x, steps):
+    """inv_sbox_group's schedule on one lane: x^4 and b = x^7 first, then
+    each step's squarings and its product by SELF / KEEP / BVAL."""
+    x2 = _sqr(x)
+    v = keep = _sqr(x2)
+    b = _mul(v, _mul(x2, x))
+    for m, src, save in steps:
+        tail = {"SELF": v, "KEEP": keep, "BVAL": b}[src]
+        for _ in range(m):
+            v = _sqr(v)
+        v = _mul(v, tail)
+        if save:
+            keep = v
+    return v - P if v >= P else v
+
+
+def test_model_square_is_the_exact_square():
+    for a in MODEL_EDGES + _seeded_u64(21):
+        lo, hi = _sqr_wide(a)
+        assert lo | hi << 64 == a * a, a
+
+
+def test_model_fold_reduces_mod_p_below_2_64():
+    values = [(lo, hi) for lo in MODEL_EDGES for hi in MODEL_EDGES]
+    values += list(zip(_seeded_u64(22), _seeded_u64(23)))
+    values += [_sqr_wide(a) for a in MODEL_EDGES + _seeded_u64(24)]
+    for lo, hi in values:
+        r = _fold128(lo, hi)
+        assert 0 <= r <= M64 and r % P == (lo + (hi << 64)) % P, (lo, hi)
+
+
+def test_model_wide3_offset_is_zero_mod_p_and_covers_three_products():
+    w = _Wide3(offset=True)
+    assert w._int() == P << 66 and w._int() > 3 * M64 * M64
+    assert w.value() == 0
+    for _ in range(3):
+        w.sub(*_mul_wide(M64, M64))
+    assert w.value() == (-3 * M64 * M64) % P
+
+
+@pytest.mark.parametrize("op", ["square", "product"])
+def test_model_cubic_extension_equals_the_plain_twin(op):
+    vals = list(EDGE_VALUES) + _seeded_u64(25 if op == "square" else 26, below=P)
+    n = len(vals) // 3 * 3
+    a = np.array(vals[:n], dtype=np.uint64).reshape(3, -1)
+    b = np.roll(a, 1, axis=1) if op == "product" else a
+    want = F.to_numpy(rescue._c3_mul(_t(a), _t(b)))
+    cols_a, cols_b = _cols(a), _cols(b)
+    got = [(_c3_sqr(x) if op == "square" else _c3_mul(x, y)) for x, y in zip(cols_a, cols_b)]
+    assert got == _cols(want)
+
+
+def test_model_lockstep_chain_gives_the_seventh_root():
+    steps = _inv_steps()
+    assert [m for m, _, _ in steps] == [3, 6, 12, 6, 31, 1, 2]
+    assert 2 + sum(m for m, _, _ in steps) == 63  # x^2, x^4, then the steps' squarings
+    for x in list(EDGE_VALUES) + _seeded_u64(27, below=P):
+        assert _inv_sbox(x, steps) == pow(x, rescue.INV_ALPHA, P), x
+
+
+def _model_permute(state: list, which: str) -> list:
+    """The kernel's permutation on one state with the models above: MDS
+    (unchanged, exact here), + ARK, x^7 per lane, x^(1/7) by the lockstep
+    schedule, RPX's E round by the Karatsuba models, outputs canonical."""
+    from miden_tpu_torch.hash import rescue_constants as RC
+
+    steps = _inv_steps()
+
+    def mds(s):
+        return [sum(RC.MDS_ROW0[k] * s[(i + k) % 12] for k in range(12)) % P for i in range(12)]
+
+    def fb(s, r):
+        s = [_add(x, c) for x, c in zip(mds(s), RC.ARK1[r])]
+        s = [_mul(_sqr(_sqr(x)), _mul(_sqr(x), x)) % P for x in s]
+        s = [_add(x, c) for x, c in zip(mds(s), RC.ARK2[r])]
+        return [_inv_sbox(x, steps) for x in s]
+
+    def ext(s, r):
+        s = [_add(x, c) for x, c in zip(s, RC.ARK1[r])]
+        out = []
+        for c in range(4):
+            a = s[3 * c : 3 * c + 3]
+            out += _c3_mul(_c3_sqr(_c3_mul(_c3_sqr(a), a)), a)
+        return out
+
+    s = list(state)
+    if which == "rpo":
+        for r in range(7):
+            s = fb(s, r)
+        return s
+    for r in (0, 2, 4):
+        s = ext(fb(s, r), r + 1)
+    return [_add(x, c) for x, c in zip(mds(s), RC.ARK1[6])]
+
+
+@pytest.mark.parametrize("which", ["rpo", "rpx"])
+def test_model_permutation_equals_rescue_host_on_edge_states(which):
+    states = _cols(rescue.edge_states()) + _cols(_states(28, 4))
+    assert [_model_permute(st, which) for st in states] == [HOST[which](st) for st in states]
+
+
+@pytest.mark.parametrize("which", ["rpo", "rpx"])
+def test_edge_state_harness_holds_the_plain_twins_to_rescue_host(which):
+    """``rescue.hold_edge_states`` (chip_smoke phase 2 and the card
+    tests run it on the kernels) with the plain twins in the kernels' place:
+    on the CPU it holds the twins to ``rescue_host`` on the edge states."""
+    from types import SimpleNamespace
+
+    sp = SPONGES[which]
+    twin = SimpleNamespace(permute_kernel=sp.permute_plain, permute_plain=sp.permute_plain,
+                           absorb_rows_kernel=sp.absorb_rows_plain, absorb_rows_plain=sp.absorb_rows_plain,
+                           compress_rows_kernel=sp.compress_rows_plain, compress_rows_plain=sp.compress_rows_plain)
+    assert rescue.hold_edge_states(twin, HOST[which], "cpu") == {"permute": 0, "absorb_rows": 0, "compress_rows": 0}
