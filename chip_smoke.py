@@ -34,8 +34,9 @@ Phases, one line each (plus details):
    Python interpreter;
    5c. the same facade under PcsParams(hash_name="rpo256" | "rpx256"), whose
    trees R1 / R2 build: the fib program (repeat.10) card == CPU and
-   verified under each; vm-fib-18-rpo256 (the program of (b)) timed like
-   (b), traced and verified; vm-fib-18-rpx256, one timed call, verified;
+   verified under each; vm-fib-18-rpo256 (the program of (b)), a traced
+   warm-up and one timed call, verified; vm-fib-18-rpx256, one timed call,
+   verified;
    5d. bench_airs.square_lut_statement, an AIR with preprocessed columns,
    at MIDEN_PARAMS: card == CPU at 2^10 rows, one proof at 2^18 rows on
    the card, verified against its preprocessed commitment;
@@ -50,7 +51,7 @@ Phases, one line each (plus details):
    8 x keccak256::hash_memory of 1 KiB, a 32-deep keccak256::merge path)
    through prove_program at MIDEN_PARAMS, then its
    deferred state through prove_deferred_state_dag on the card: one traced
-   warm-up and two timed session proofs, the trace-build time, the AIRs' log
+   warm-up and one timed session proof, the trace-build time, the AIRs' log
    heights, launches, spans, peak memory, proof size, and
    verify_program(proof, deferred=session) accepting where a tampered root
    and a missing session are rejected;
@@ -60,7 +61,7 @@ Phases, one line each (plus details):
    on the card and on the CPU, bytes equal; (b) stdlib-blake3-18, the
    reference's blake3_1to1 benchmark program (28 blake3::hash_1to1 calls,
    252,138 cycles, log heights [18, 18, 13]: the first full-height chiplets
-   AIR) at MIDEN_PARAMS: a traced warm-up and two timed prove_program calls,
+   AIR) at MIDEN_PARAMS: a traced warm-up and one timed prove_program call,
    the execute_and_trace span, launches, peak memory, proof size, the digest
    against 28 host BLAKE3s, verified, and the chiplets and Poseidon2 AIRs'
    LogUp aux traces card == CPU at full height; (c) stdlib-host, one
@@ -69,8 +70,22 @@ Phases, one line each (plus details):
    the host's, verified;
    (d) MerkleTree over 2^16 seeded leaves on the card (K3 compress_rows),
    every layer equal to the CPU's;
+11. the in-VM STARK verifier (``miden_tpu_torch.bench_recursion``), the
+   recursion step: (a) the recursion fixture of 5(b)'s vm-fib-18 proof
+   (``stdlib.recursion.extract_recursion_fixture``); (b) the full transcript
+   replay (every challenge by the in-VM random coin, then per query the
+   DEEP quotient, the FRI fold chain through FRIE2F4 and the final
+   polynomial) and the OOD identity (each AIR's constraint fold checked by
+   its registry-authenticated ACE circuit) executed in the VM on it, the
+   replay's (z, alpha_deep, beta_deep) equal to the fixture's, and a circuit
+   blob with one bit flipped refused; (c) recursion-18: the replay program
+   (304,048 cycles) proved on the card at MIDEN_PARAMS with its launches,
+   heights, trace-build span, C trace share and peak memory, and verified;
+   (d) the fib repeat.40 proof at TEST_PARAMS: both programs executed on its
+   fixture, and fri_query_program proved on the card and on the CPU, bytes
+   equal;
 7. hold each kernel against its plain twin and time it, with its bound, at
-   every shape phases 4, 5(b), 5c, 6(b) and 10(b) launched it with (K1 printed at
+   every shape phases 4, 5(b), 5c, 6(b), 10(b) and 11(c) launched it with (K1 printed at
    each shape; a sponge entry over every state of a launch, or over 2^14
    states spread over it where the plain twin would take more than 30 s),
    with its time per proof of each kind; R1 / R2's permute entries, which no
@@ -173,10 +188,11 @@ def max_abs_err(a, b) -> int:
 def device_busy(torch, fn) -> str:
     """One run of ``fn`` under torch.profiler: device time (kernels, copies,
     fills) against wall time, and the kernels that take the most device
-    time. Only device activity is traced. The events are read from the
-    profiler's Chrome trace, which kineto writes in C++: building Python
-    event objects for the ~600k launches of a VM proof (``key_averages``)
-    took minutes."""
+    time. Only device activity is traced. The device's events are read
+    straight from kineto's results: the profiler's Python event tree
+    (``key_averages``) for the ~600k launches of a VM proof took minutes,
+    and its Chrome trace is slower to write and read back than these
+    events are to sum."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -184,23 +200,18 @@ def device_busy(torch, fn) -> str:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "smoke_out", "device_busy.json")
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    prof.export_chrome_trace(path)
-    with open(path) as fh:
-        events = json.load(fh).get("traceEvents", [])
-    os.remove(path)
     sums: dict = {}
-    for ev in events:
-        if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in ev:
-            entry = sums.setdefault(ev["name"].removeprefix("void ").removeprefix("at::native::"), [0.0, 0])
-            entry[0] += ev["dur"]
+    on_card = torch.autograd.DeviceType.CUDA
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == on_card:
+            entry = sums.setdefault(ev.name().removeprefix("void ").removeprefix("at::native::"), [0, 0])
+            entry[0] += ev.duration_ns()
             entry[1] += 1
     if not sums:
         return f"wall {wall:.4f} s under the profiler; device time not measured (no device events)"
-    rows = sorted(((us, k, c) for k, (us, c) in sums.items()), reverse=True)
-    total = sum(r[0] for r in rows) / 1e6
-    top = "; ".join(f"{k[:100]} {us / 1e3:.2f} ms x{c}" for us, k, c in rows[:8])
+    rows = sorted(((ns, k, c) for k, (ns, c) in sums.items()), reverse=True)
+    total = sum(r[0] for r in rows) / 1e9
+    top = "; ".join(f"{k[:100]} {ns / 1e6:.2f} ms x{c}" for ns, k, c in rows[:8])
     return (f"wall {wall:.4f} s under the profiler, device busy {total:.4f} s "
             f"({100 * total / wall:.1f} %); top: {top}")
 
@@ -392,20 +403,17 @@ def session_phase(torch, kernels, dev: str, pinned) -> tuple:
         S.prove_deferred_state_dag(out.deferred_state, MIDEN_PARAMS, device=dev)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
+    # one timed call: with phase 11 a second one would crowd the 1200 s limit
     torch.cuda.reset_peak_memory_stats()
-    times, session = [], None
     session_shapes = {name: {} for name in kernels}
-    for rep in range(2):
-        if rep == 0:
-            zero_counts(kernels)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        session = S.prove_deferred_state_dag(out.deferred_state, MIDEN_PARAMS, device=dev)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        if rep == 0:
-            session_launches = {name: kern.launches for name, (kern, _, _) in kernels.items()}
-            record_shapes(kernels, session_shapes)
+    zero_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    session = S.prove_deferred_state_dag(out.deferred_state, MIDEN_PARAMS, device=dev)
+    torch.cuda.synchronize()
+    session_s = time.perf_counter() - t0
+    session_launches = {name: kern.launches for name, (kern, _, _) in kernels.items()}
+    record_shapes(kernels, session_shapes)
     peak = torch.cuda.max_memory_allocated()
     if tuple(session.root) != tuple(proof.deferred_root):
         raise AssertionError("the session root is not the main proof's deferred root")
@@ -432,7 +440,7 @@ def session_phase(torch, kernels, dev: str, pinned) -> tuple:
             f"{air} {v[0]:.4f} s" for (name, air), v in rec.by_air.items() if name == span_name))
     log(f"  launches per session proof: {session_launches}")
     log_phase(f"phase 6b session of {len(claims)} claims at MIDEN_PARAMS: prove_deferred_state_dag "
-              f"{', '.join(f'{t:.4f}' for t in times)} s (traced warm-up {warm_s:.3f} s; trace build "
+              f"{session_s:.4f} s (traced warm-up {warm_s:.3f} s; trace build "
               f"{build_s:.3f} s of each), peak memory {peak / 2**30:.3f} GiB, proof "
               f"{len(proof_to_bytes(session.stark))} bytes, verify_deferred {verify_s:.3f} s; "
               f"verify_program(proof, deferred=session) accepts, tampered root rejected")
@@ -444,10 +452,9 @@ def rescue_phase(torch, kernels, dev: str) -> dict:
     PcsParams, rpo256 and rpx256 (kernels R1 and R2 build every tree): (a)
     the fib program (repeat.10) at MIDEN_PARAMS on the card and on the CPU,
     proof bytes equal and verify_program accepting; (b) vm-fib-18-rpo256, the
-    program of phase 5b at MIDEN_PARAMS with hash_name="rpo256": one warm-up
-    and three timed prove_program calls, the spans of a traced call, peak
-    memory, verified; (c) vm-fib-18-rpx256: one timed call, verified.
-    Returns {"vm_rpo" | "vm_rpx": (launches, launch shapes)} of the first
+    program of phase 5b at MIDEN_PARAMS with hash_name="rpo256": a traced
+    warm-up (its spans) and one timed prove_program call, peak memory,
+    verified; (c) vm-fib-18-rpx256: one timed call, verified. Returns {"vm_rpo" | "vm_rpx": (launches, launch shapes)} of the
     timed call of each."""
     from miden_tpu_torch.field import gl
     from miden_tpu_torch.stark import MIDEN_PARAMS
@@ -457,7 +464,8 @@ def rescue_phase(torch, kernels, dev: str) -> dict:
 
     small, full = assemble(fib_program(VM_SMALL_REPS)), assemble(fib_program(VM_FULL_REPS))
     out = {}
-    for hash_name, kind, reps in (("rpo256", "vm_rpo", 3), ("rpx256", "vm_rpx", 1)):
+    # one timed call each (rpo256 after a traced warm-up): three would crowd the 1200 s limit
+    for hash_name, kind, traced in (("rpo256", "vm_rpo", True), ("rpx256", "vm_rpx", False)):
         params = dataclasses.replace(MIDEN_PARAMS, hash_name=hash_name)
         _, on_card = prove_program(small, params=params, device=dev)
         t0 = time.perf_counter()
@@ -469,31 +477,25 @@ def rescue_phase(torch, kernels, dev: str) -> dict:
         log(f"  {hash_name} fib repeat.{VM_SMALL_REPS}: card == CPU ({len(on_card.to_bytes())} bytes), "
             f"verified; CPU prove {cpu_s:.3f} s")
         warm = ""
-        if reps > 1:
+        if traced:
             t0 = time.perf_counter()
-            prove_program(full, params=params, device=dev)
-            torch.cuda.synchronize()
-            warm = f"; warm-up {time.perf_counter() - t0:.3f} s"
-        torch.cuda.reset_peak_memory_stats()
-        times, shapes = [], {name: {} for name in kernels}
-        for rep in range(reps):
-            if rep == 0:
-                zero_counts(kernels)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            vm_out, proof = prove_program(full, params=params, device=dev)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            if rep == 0:
-                launches = {name: kern.launches for name, (kern, _, _) in kernels.items()}
-                record_shapes(kernels, shapes)
-        peak = torch.cuda.max_memory_allocated()
-        check_path(launches, hash_name, f"vm-fib-18-{hash_name}")
-        if reps > 1:
             with Recorder() as rec:
                 prove_program(full, params=params, device=dev)
-            log("  spans (traced prove_program, synchronized at span edges): " + "; ".join(
+            warm = f", after a traced warm-up of {time.perf_counter() - t0:.3f} s"
+            log("  spans (traced warm-up prove_program, synchronized at span edges): " + "; ".join(
                 f"{k} {v[0]:.4f} s" for k, v in rec.totals.items()))
+        torch.cuda.reset_peak_memory_stats()
+        shapes = {name: {} for name in kernels}
+        zero_counts(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vm_out, proof = prove_program(full, params=params, device=dev)
+        torch.cuda.synchronize()
+        prove_s = time.perf_counter() - t0
+        launches = {name: kern.launches for name, (kern, _, _) in kernels.items()}
+        record_shapes(kernels, shapes)
+        peak = torch.cuda.max_memory_allocated()
+        check_path(launches, hash_name, f"vm-fib-18-{hash_name}")
         t0 = time.perf_counter()
         verify_program(proof, params=params)
         verify_s = time.perf_counter() - t0
@@ -501,8 +503,7 @@ def rescue_phase(torch, kernels, dev: str) -> dict:
             raise AssertionError(f"{hash_name}: VM program left {vm_out.stack[0]} on top of the stack")
         log(f"  launches per vm-fib-18-{hash_name} proof: {launches}")
         log_phase(f"phase 5c vm-fib-18-{hash_name} MIDEN_PARAMS: log heights {proof.stark.log_heights}; "
-                  f"prove_program {'median ' if reps > 1 else ''}{statistics.median(times):.4f} s (runs "
-                  f"{', '.join(f'{t:.4f}' for t in times)}{warm}), peak memory {peak / 2**30:.3f} GiB, "
+                  f"prove_program {prove_s:.4f} s (one timed call{warm}), peak memory {peak / 2**30:.3f} GiB, "
                   f"proof {len(proof.to_bytes())} bytes, verified in {verify_s:.3f} s, top of stack == fib mod p")
         out[kind] = (launches, shapes)
     return out
@@ -740,10 +741,10 @@ def vm_aux_card_vs_cpu(trace, dev: str) -> str:
     aux columns and aux values must be bit-equal."""
     from miden_tpu_torch.field import gl
     from miden_tpu_torch.field import goldilocks as F
-    from miden_tpu_torch.vm.prove import _statement
+    from miden_tpu_torch.vm.prove import vm_statement
 
-    statement = _statement(trace.program_hash, trace.stack_inputs, trace.stack_outputs,
-                           trace.kernel_digests, trace.deferred_root)
+    statement = vm_statement(trace.program_hash, trace.stack_inputs, trace.stack_outputs,
+                             trace.kernel_digests, trace.deferred_root)
     rng = np.random.default_rng(18)
     checked = []
     for air, main in zip(statement.multi_air.airs[1:], (trace.chiplets, trace.poseidon)):
@@ -767,8 +768,8 @@ def stdlib_phase(torch, kernels, dev: str) -> tuple:
     (``miden_tpu_torch.bench_stdlib``). (a) stdlib-small, the u64 program,
     at MIDEN_PARAMS on the card and on the CPU: bytes equal, the u64 on
     top; (b) stdlib-blake3-18, the reference's blake3_1to1 program (28
-    hashes, 252,138 cycles): a traced warm-up and two timed prove_program
-    calls, the digest against the host chain, verified, and the chiplets and
+    hashes, 252,138 cycles): a traced warm-up and one timed prove_program
+    call, the digest against the host chain, verified, and the chiplets and
     Poseidon2 AIRs' LogUp aux traces card == CPU; (c) stdlib-host, one
     program through mem, word, u128, sorted_array, mmr, smt, sha256,
     poseidon2 and an aead round trip, proved on the card, its outputs equal
@@ -809,21 +810,19 @@ def stdlib_phase(torch, kernels, dev: str) -> tuple:
         prove_program(prog, inputs, params=MIDEN_PARAMS, event_handlers=handlers, device=dev)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
+    # one timed call: with phase 11 a second one would crowd the 1200 s limit
     torch.cuda.reset_peak_memory_stats()
-    times, shapes = [], {name: {} for name in kernels}
-    for rep in range(2):
-        if rep == 0:
-            zero_counts(kernels)
-            native_trace.RUNS.update({k: 0 for k in native_trace.RUNS})
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        b3_out, proof = prove_program(prog, inputs, params=MIDEN_PARAMS, event_handlers=handlers, device=dev)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        if rep == 0:
-            launches = {name: kern.launches for name, (kern, _, _) in kernels.items()}
-            record_shapes(kernels, shapes)
-            runs = dict(native_trace.RUNS)
+    shapes = {name: {} for name in kernels}
+    zero_counts(kernels)
+    native_trace.RUNS.update({k: 0 for k in native_trace.RUNS})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b3_out, proof = prove_program(prog, inputs, params=MIDEN_PARAMS, event_handlers=handlers, device=dev)
+    torch.cuda.synchronize()
+    b3_s = time.perf_counter() - t0
+    launches = {name: kern.launches for name, (kern, _, _) in kernels.items()}
+    record_shapes(kernels, shapes)
+    runs = dict(native_trace.RUNS)
     peak = torch.cuda.max_memory_allocated()
     t0 = time.perf_counter()
     verify_program(proof, params=MIDEN_PARAMS)
@@ -835,7 +834,7 @@ def stdlib_phase(torch, kernels, dev: str) -> tuple:
     check_path(launches, "poseidon2", "stdlib-blake3-18")
     _, b3_trace = execute_and_trace(prog, inputs, event_handlers=handlers)
     log(f"  card == CPU LogUp aux traces at full height: {vm_aux_card_vs_cpu(b3_trace, dev)}")
-    med, trace_s = statistics.median(times), rec.totals["execute and trace"][0]
+    trace_s = rec.totals["execute and trace"][0]
     log("  spans (traced warm-up prove_program, synchronized at span edges): " + "; ".join(
         f"{k} {v[0]:.4f} s" for k, v in rec.totals.items()))
     for span_name in ("evaluate constraints", "aux trace of one AIR"):
@@ -845,9 +844,9 @@ def stdlib_phase(torch, kernels, dev: str) -> tuple:
     log(f"  C trace generator: {runs['block']} blocks, {runs['rows']} of {b3_out.clk} cycles' core rows "
         f"({100 * runs['rows'] / b3_out.clk:.1f} %); the rest in the Python interpreter")
     log_phase(f"phase 10b stdlib-blake3-18 MIDEN_PARAMS: {b3_out.clk} cycles, log heights "
-              f"{proof.stark.log_heights} (core, chiplets, poseidon); prove_program median {med:.4f} s (runs "
-              f"{', '.join(f'{t:.4f}' for t in times)}; traced warm-up {warm_s:.3f} s), execute_and_trace "
-              f"{trace_s:.4f} s (traced span; {100 * trace_s / med:.1f} % of the median call), peak memory "
+              f"{proof.stark.log_heights} (core, chiplets, poseidon); prove_program {b3_s:.4f} s (one timed call; "
+              f"traced warm-up {warm_s:.3f} s), execute_and_trace "
+              f"{trace_s:.4f} s (traced span; {100 * trace_s / b3_s:.1f} % of the timed call), peak memory "
               f"{peak / 2**30:.3f} GiB, proof {len(proof.to_bytes())} bytes, verified in {verify_s:.3f} s, "
               f"digest == {B.BLAKE3_REPS} host BLAKE3s")
 
@@ -883,6 +882,126 @@ def stdlib_phase(torch, kernels, dev: str) -> tuple:
         raise AssertionError(f"MerkleTree on the card launched {compress}, not K3 compress_rows alone")
     log_phase(f"phase 10d MerkleTree over 2^16 leaves: card {card_s:.3f} s ({compress}), CPU {cpu_s:.3f} s, "
               f"root and every layer equal")
+    return launches, shapes
+
+
+def recursion_phase(torch, kernels, dev: str, fib_proof) -> tuple:
+    """Phase 11: the in-VM STARK verifier (``miden_tpu_torch.bench_recursion``)
+    on real proofs. (a) the recursion fixture of ``fib_proof``, phase 5b's
+    vm-fib-18 proof at MIDEN_PARAMS: its statement rebuilt from the public
+    claim, its transcript replayed from the protocol seed; (b) the transcript
+    replay and the OOD identity programs executed in the VM: 1 on top, the
+    replay's (z, α_deep, β_deep) equal to the fixture's, and a circuit blob
+    with one bit flipped refused by load_circuit; (c) the replay program
+    proved on the card at MIDEN_PARAMS under poseidon2 in one traced call (its
+    launches, log heights, execute_and_trace span, the core rows the C trace
+    generator wrote, peak memory, proof size) and verified; (d) at
+    TEST_PARAMS, the fib repeat.40 program of tests/test_sysvm_masm.py
+    proved on the card, both programs executed on its fixture, and
+    fri_query_program proved on the card and on the CPU, bytes equal (the
+    replay program's 2^17-row core is too large a CPU proof for the run).
+    The OOD identity program (764k cycles, a 2^20-row core) is executed, not
+    proved. Returns the launches and launch shapes of (c)."""
+    from miden_tpu_torch import bench_recursion as R
+    from miden_tpu_torch.stark import MIDEN_PARAMS, TEST_PARAMS
+    from miden_tpu_torch.stdlib import assemble_with_stdlib, stdlib_event_handlers
+    from miden_tpu_torch.utils.tracing import Recorder
+    from miden_tpu_torch.vm import assemble, native_trace
+    from miden_tpu_torch.vm.processor import AdviceProvider, ExecutionError, execute
+    from miden_tpu_torch.vm.prove import prove_program, protocol_seed, verify_program
+
+    handlers = stdlib_event_handlers()
+
+    def run(src, advice=()):
+        return execute(assemble_with_stdlib(src), [], advice=AdviceProvider(stack=list(advice)),
+                       event_handlers=handlers)
+
+    def execute_both(statement, fx, params) -> str:
+        """(b): the replay and the OOD identity executed, checked; a summary."""
+        t0 = time.perf_counter()
+        out = run(R.transcript_replay_program(fx, params, protocol_seed()), R.replay_advice(fx))
+        replay_s = time.perf_counter() - t0
+        want = [1, *fx.z, *fx.alpha_deep, *fx.beta_deep]
+        if [int(v) for v in out.stack[:7]] != want:
+            raise AssertionError(f"the in-VM replay left {out.stack[:7]}, the fixture gives {want}")
+        t0 = time.perf_counter()
+        src, adv = R.ood_identity_program(statement, fx, params)
+        ood = run(src, adv)
+        ood_s = time.perf_counter() - t0
+        if int(ood.stack[0]) != 1:
+            raise AssertionError(f"the in-VM OOD identity left {ood.stack[0]}")
+        return (f"replay {out.clk} cycles in {replay_s:.3f} s, [1, z, alpha_deep, beta_deep] == the "
+                f"fixture's; OOD identity {ood.clk} cycles in {ood_s:.3f} s, 1 on top")
+
+    # -- (a) the fixture of vm-fib-18 ---------------------------------------------
+    t0 = time.perf_counter()
+    statement, fx = R.vm_recursion_fixture(fib_proof, MIDEN_PARAMS)
+    fixture_s = time.perf_counter() - t0
+    log(f"  fixture of vm-fib-18 (log heights {fx.log_heights}, log LDE {fx.log_lde_height}, "
+        f"{len(fx.fri_betas)} FRI layers, {len(fx.indices)} distinct of {MIDEN_PARAMS.num_queries} queries) "
+        f"in {fixture_s:.3f} s")
+
+    # -- (b) both programs executed; a tampered circuit refused --------------------
+    log(f"  executed at MIDEN_PARAMS: {execute_both(statement, fx, MIDEN_PARAMS)}")
+    if int(run(R.LOAD_CIRCUIT_PROGRAM, R.load_circuit_advice()).stack[0]) != 100002:
+        raise AssertionError("load_circuit did not authenticate the registry's circuit")
+    try:
+        run(R.LOAD_CIRCUIT_PROGRAM, R.load_circuit_advice(tamper=True))
+    except ExecutionError:
+        pass
+    else:
+        raise AssertionError("load_circuit accepted a circuit blob with one bit flipped")
+
+    # -- (c) the replay program proved on the card in one traced call ---------------
+    prog = assemble_with_stdlib(R.transcript_replay_program(fx, MIDEN_PARAMS, protocol_seed()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(kernels)
+    native_trace.RUNS.update({k: 0 for k in native_trace.RUNS})
+    t0 = time.perf_counter()
+    with Recorder() as rec:
+        out, proof = prove_program(prog, advice=AdviceProvider(stack=R.replay_advice(fx)), params=MIDEN_PARAMS,
+                                   event_handlers=handlers, device=dev)
+    torch.cuda.synchronize()
+    prove_s = time.perf_counter() - t0
+    launches = {name: kern.launches for name, (kern, _, _) in kernels.items()}
+    shapes = {name: {} for name in kernels}
+    record_shapes(kernels, shapes)
+    runs, peak = dict(native_trace.RUNS), torch.cuda.max_memory_allocated()
+    check_path(launches, "poseidon2", "the replay program's proof")
+    want = [1, *fx.z, *fx.alpha_deep, *fx.beta_deep]
+    if [int(v) for v in out.stack[:7]] != want or list(proof.stack_outputs[:7]) != want:
+        raise AssertionError("the proved replay program's outputs differ from the fixture's")
+    t0 = time.perf_counter()
+    verify_program(proof, params=MIDEN_PARAMS, partial=True)
+    verify_s = time.perf_counter() - t0
+    trace_s = rec.totals["execute and trace"][0]
+    log("  spans (traced prove_program): " + "; ".join(f"{k} {v[0]:.4f} s" for k, v in rec.totals.items()))
+    log(f"  launches per recursion-18 proof: {launches}")
+    log_phase(f"phase 11a-c recursion-18: vm-fib-18's proof verified in the VM (replay and OOD identity; a "
+              f"flipped circuit bit refused), and the replay program proved on the card at MIDEN_PARAMS: "
+              f"{out.clk} cycles, log heights {proof.stark.log_heights} (core, chiplets, poseidon); "
+              f"prove_program {prove_s:.3f} s (traced: spans synchronize at their edges), execute_and_trace "
+              f"{trace_s:.3f} s ({100 * trace_s / prove_s:.1f} %), C trace generator {runs['rows']} of "
+              f"{out.clk} core rows in {runs['block']} blocks ({100 * runs['rows'] / out.clk:.1f} %; the rest "
+              f"in the Python interpreter), peak memory {peak / 2**30:.3f} GiB, proof {len(proof.to_bytes())} "
+              f"bytes, verified in {verify_s:.3f} s")
+
+    # -- (d) TEST_PARAMS: the fib repeat.40 proof, card == CPU ------------------------
+    _, small_proof = prove_program(assemble(fib_program(40)), params=TEST_PARAMS, device=dev)
+    small_st, small_fx = R.vm_recursion_fixture(small_proof, TEST_PARAMS)
+    executed = execute_both(small_st, small_fx, TEST_PARAMS)
+    fri = assemble_with_stdlib(R.fri_query_program(small_fx))
+    _, on_card = prove_program(fri, params=TEST_PARAMS, event_handlers=handlers, device=dev)
+    t0 = time.perf_counter()
+    _, on_cpu = prove_program(fri, params=TEST_PARAMS, event_handlers=handlers, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if on_card.to_bytes() != on_cpu.to_bytes():
+        raise AssertionError("fri_query_program: the card's and the CPU's proof bytes differ")
+    verify_program(on_card, params=TEST_PARAMS, partial=True)
+    log_phase(f"phase 11d fib repeat.40 at TEST_PARAMS: {executed}; fri_query_program card == CPU "
+              f"({len(on_card.to_bytes())} bytes, log heights {on_card.stark.log_heights}, CPU prove "
+              f"{cpu_s:.3f} s), verified")
     return launches, shapes
 
 
@@ -943,7 +1062,7 @@ def kernel_rows(torch, kernels, proofs, errs, rand) -> list:
     its twin over every state of a launch unless the twin would take more
     than PLAIN_CHECK_S there (:func:`hold_sponge_launch`). ``proofs``:
     kind -> (launches, shapes) for "vm", "shaped", "session", "vm_rpo",
-    "vm_rpx" and "blake3" (stdlib-blake3-18)."""
+    "vm_rpx", "blake3" (stdlib-blake3-18) and "recursion" (recursion-18)."""
     from miden_tpu_torch.bench_kernels import (
         HBM_BYTES_PER_S, INT32_MULS_PER_PERM, bench_case, bound_ms, time_ms,
     )
@@ -960,6 +1079,7 @@ def kernel_rows(torch, kernels, proofs, errs, rand) -> list:
     mul_rate = int32_mul_rate(torch)
     rows = []
     for name, (kern, source, replaces) in kernels.items():
+        entry_t0 = time.perf_counter()
         perm = name.split("_")[0]
         main = ROW_KIND.get(perm, "vm")
         per_proof = {kind: 0.0 for kind in proofs}
@@ -994,7 +1114,8 @@ def kernel_rows(torch, kernels, proofs, errs, rand) -> list:
                 f"twin would take over {PLAIN_CHECK_S:g} s, over {SAMPLE_STATES} states: the first "
                 f"and last {SAMPLE_STATES // 4} and {SAMPLE_STATES // 2} at an even stride)"
                 if sampled else "")
-        log(f"  {name}: kernel == plain at all {len(keys)} shapes{over}, max |diff| {errs[name]}")
+        log(f"  {name}: kernel == plain at all {len(keys)} shapes{over}, max |diff| {errs[name]} "
+            f"({time.perf_counter() - entry_t0:.1f} s)")
         if errs[name]:
             raise AssertionError(f"{name} disagrees with its plain version at the proofs' shapes")
         key, bench, ms, count, plain_ms = top
@@ -1033,7 +1154,6 @@ def main() -> int:
         return 2
     from miden_tpu_torch.bench_airs import miden_shaped_statement
     from miden_tpu_torch.field import gl
-    from miden_tpu_torch.field import goldilocks as F
     from miden_tpu_torch.hash import poseidon2, rescue, rescue_host
     from miden_tpu_torch.ntt import ntt
     from miden_tpu_torch.stark import MIDEN_PARAMS, prove, verify
@@ -1068,11 +1188,18 @@ def main() -> int:
     log(f"  host launch cost: {_launch_us(torch):.2f} us a one-element add")
 
     # -- 2. kernels against their plain twins -------------------------------
-    rng = np.random.default_rng(2024)
     dev = "cuda"
+    card_gen = torch.Generator(device=dev)
+    card_gen.manual_seed(2024)
 
     def rand(shape):
-        return F.to_torch(rng.integers(0, gl.P, size=shape, dtype=np.uint64), dev)
+        """Uniform canonical field elements made on the card from a seeded
+        generator: phase 7's inputs reach 2^28 elements, which the host's
+        generator takes seconds each to make and copy. Values >= p (as u64,
+        v in (-2^32, 0) as int64) wrap to v - p = v + 2^32 - 1."""
+        halves = torch.randint(0, 1 << 32, (2, *shape), generator=card_gen, dtype=torch.int64, device=dev)
+        v = (halves[0] << 32) | halves[1]
+        return torch.where((v < 0) & (v > -(1 << 32)), v + ((1 << 32) - 1), v)
 
     errs = {k: 0 for k in kernels}
     checked = {k: 0 for k in kernels}
@@ -1288,10 +1415,14 @@ def main() -> int:
     # -- 10. the standard library: stdlib-small, -blake3-18, -host; MerkleTree --
     blake3_proof = stdlib_phase(torch, kernels, dev)
 
+    # -- 11. the in-VM STARK verifier on vm-fib-18's proof ------------------------
+    recursion_proof = recursion_phase(torch, kernels, dev, vm_proof)
+
     # -- 7. kernels vs plain, and timings, at the proofs' shapes --------------
     rows = kernel_rows(torch, kernels, {
         "vm": (vm_launches, vm_shapes), "shaped": (launches, shapes),
         "session": (session_launches, session_shapes), **rescue_proofs, "blake3": blake3_proof,
+        "recursion": recursion_proof,
     }, errs, rand)
     log_phase(f"phase 7 kernels vs plain and timings at the proofs' shapes on {card}")
 

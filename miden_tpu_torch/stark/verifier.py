@@ -31,7 +31,7 @@ class VerificationError(ValueError):
     pass
 
 
-def _pattern_coeffs(pattern) -> list:
+def pattern_coeffs(pattern) -> list:
     """Coefficients of the degree-<p polynomial with h(ω_p^i) = pattern[i]
     (naive O(p²) inverse DFT — p is tiny)."""
     p = len(pattern)
@@ -46,7 +46,7 @@ def _pattern_coeffs(pattern) -> list:
     return coeffs
 
 
-def _ext_horner(coeffs_desc, x: tuple) -> tuple:
+def ext_horner(coeffs_desc, x: tuple) -> tuple:
     acc = (0, 0)
     for c in coeffs_desc:
         acc = gl.ext_add(gl.ext_mul(acc, x), c if isinstance(c, tuple) else (c, 0))
@@ -247,12 +247,12 @@ def verify(
         zl = dom.lift(z)
         periodic = []
         for pat in air.periodic_columns:
-            coeffs = _pattern_coeffs(list(pat))
+            coeffs = pattern_coeffs(list(pat))
             arg = gl.ext_exp_power_of_2(
                 zl, dom.log_trace_height - (len(pat).bit_length() - 1)
             )
             periodic.append(
-                Expr(backend, "ext", _ext_horner(list(reversed(coeffs)), arg))
+                Expr(backend, "ext", ext_horner(list(reversed(coeffs)), arg))
             )
         sels = dom.selectors_at(z)
         folder = Folder(
@@ -375,7 +375,7 @@ def verify(
             cur_gen = gl.exp_power_of_2(cur_gen, log_arity)
         # Final polynomial evaluation.
         x_fin = gl.mul(cur_shift, pow(cur_gen, cur_index, gl.P))
-        expect = _ext_horner(final_poly, (x_fin, 0))
+        expect = ext_horner(final_poly, (x_fin, 0))
         if expect != cur_val:
             raise VerificationError("final FRI polynomial mismatch")
 

@@ -1,10 +1,11 @@
 """MASM standard library.
 
 A copy of ``miden_tpu``'s stdlib (the reference's crates/lib/core/asm/):
-every module except the in-VM STARK verifier's (``stark/*``,
-``pcs/fri/frie2f4`` and ``sys/vm/constraints_eval``), with the same module
-paths, procedure names and bodies, so each procedure's MAST digest equals
-``miden_tpu``'s (the repaired ECDSA ``verify_prehash`` excepted). Modules load
+every module, the in-VM STARK verifier's (``stark/*``, ``pcs/fri/frie2f4``
+and ``sys/vm/constraints_eval``, driven by ``recursion.py``'s fixtures)
+included, with the same module paths, procedure names and bodies, so each
+procedure's MAST digest equals ``miden_tpu``'s (the repaired ECDSA
+``verify_prehash`` excepted). Modules load
 from ``asm/`` next to this file and are addressed the way the reference
 addresses them, e.g.::
 

@@ -78,7 +78,7 @@ def _merkle_root(leaves: list) -> tuple:
 @lru_cache(maxsize=1)
 def vm_registry() -> tuple:
     """(root, leaf_digests, circuits) for the VM's three AIRs with the
-    real statement input layout (40 publics — vm/prove.py _statement)."""
+    real statement input layout (40 publics — vm/prove.py vm_statement)."""
     from .ace_codegen import build_ace_circuit
     from .constraints import CoreVmAir
     from .constraints.chiplets_air import ChipletsVmAir

@@ -202,7 +202,7 @@ class VmMultiAir(MultiAir):
         return [total]
 
 
-def _statement(
+def vm_statement(
     program_hash, stack_inputs, stack_outputs, kernel_digests=(),
     deferred_root=(0, 0, 0, 0),
 ) -> Statement:
@@ -237,7 +237,7 @@ def prove_program(
 
     with span("execute and trace"):
         out, trace = execute_and_trace(program, stack_inputs, advice, **opts)
-    statement = _statement(
+    statement = vm_statement(
         trace.program_hash,
         trace.stack_inputs,
         trace.stack_outputs,
@@ -328,7 +328,7 @@ def verify_program(
             raise VerificationError(
                 "deferred wire does not open the bound deferred root"
             )
-    statement = _statement(
+    statement = vm_statement(
         proof.program_hash,
         proof.stack_inputs,
         proof.stack_outputs,

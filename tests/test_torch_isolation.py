@@ -45,6 +45,8 @@ def _sources():
         "from miden_tpu_torch.merkle.lmcs import BLAKE3_HASH, KECCAK_HASH",
         "import miden_tpu_torch.crypto; from miden_tpu_torch.crypto import aead, ecdh, ies, rand_coin; "
         "from miden_tpu_torch.stdlib import smt_advice, stdlib_modules",
+        "from miden_tpu_torch.stdlib.recursion import extract_recursion_fixture; "
+        "import miden_tpu_torch.bench_recursion; from miden_tpu_torch.dsa import ed25519, falcon512",
     ],
 )
 def test_import_pulls_in_neither_jax_nor_miden_tpu(stmt):

@@ -590,19 +590,20 @@ def test_stdlib_handlers_and_modules_equal_miden_tpu():
     handlers, theirs = stdlib_event_handlers(), j_handlers()
     assert set(handlers) == set(theirs)
     assert {k: h.__name__ for k, h in handlers.items()} == {k: h.__name__ for k, h in theirs.items()}
-    # miden_tpu's 25 modules less the seven of the in-VM STARK verifier
-    verifier = {m for m in j_modules() if m.startswith(("miden::core::stark::", "miden::core::pcs::",
-                                                        "miden::core::sys::vm::"))}
-    assert len(j_modules()) == 25 and len(verifier) == 7
-    assert sorted(stdlib_modules()) == sorted(set(j_modules()) - verifier) == [
+    # all 25 of miden_tpu's modules, the seven of the in-VM STARK verifier included
+    assert len(j_modules()) == 25
+    assert sorted(stdlib_modules()) == sorted(j_modules()) == [
         "miden::core::collections::mmr", "miden::core::collections::smt",
         "miden::core::collections::sorted_array", "miden::core::crypto::aead",
         "miden::core::crypto::dsa::ecdsa_secp256k1", "miden::core::crypto::ec::secp256k1",
         "miden::core::crypto::hashes::blake3", "miden::core::crypto::hashes::keccak256",
         "miden::core::crypto::hashes::poseidon2", "miden::core::crypto::hashes::sha256",
         "miden::core::debug", "miden::core::math::bits", "miden::core::math::u128",
-        "miden::core::math::u256", "miden::core::math::u64", "miden::core::mem", "miden::core::sys",
-        "miden::core::word",
+        "miden::core::math::u256", "miden::core::math::u64", "miden::core::mem",
+        "miden::core::pcs::fri::frie2f4", "miden::core::stark::constants",
+        "miden::core::stark::deep_queries", "miden::core::stark::ood_frames",
+        "miden::core::stark::public_inputs", "miden::core::stark::random_coin",
+        "miden::core::sys", "miden::core::sys::vm::constraints_eval", "miden::core::word",
     ]
 
 
