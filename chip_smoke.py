@@ -84,8 +84,22 @@ Phases, one line each (plus details):
    (d) the fib repeat.40 proof at TEST_PARAMS: both programs executed on its
    fixture, and fri_query_program proved on the card and on the CPU, bytes
    equal;
+12. multi-device proving (``miden_tpu_torch.dist``, ``bench_dist``): (a) the
+   program of 5(b) through prove_program under use_mesh(make_mesh("cuda")),
+   an NCCL group of world size 1 (NCCL refuses two ranks on one card): its
+   bytes equal 5(b)'s, its seconds and peak memory beside 5(b)'s, every
+   entry of the path launched; (b) on 4 gloo ranks sharing the card (spawned
+   after the build, loading its libraries): coset_lde_sharded and
+   build_tree_sharded at the shapes of vm-fib-18's main trace ((2^18, 51)
+   row-sharded to a 2^21-row LDE, (2^13, 24), (2^16, 16); random values),
+   each rank's LDE rows, every layer, the whole matrices and the root equal
+   to the single-device result on the card, with the seconds and the bytes
+   each rank moved, and which gloo collectives take CUDA tensors; (c) on 2
+   of those ranks, prove_program of the program of 5(a) under the mesh:
+   both ranks' bytes equal 5(a)'s CPU bytes. The shapes K1–K3 launched with
+   in (a)–(c) join phase 7's;
 7. hold each kernel against its plain twin and time it, with its bound, at
-   every shape phases 4, 5(b), 5c, 6(b), 10(b) and 11(c) launched it with (K1 printed at
+   every shape phases 4, 5(b), 5c, 6(b), 10(b), 11(c) and 12 launched it with (K1 printed at
    each shape; a sponge entry over every state of a launch, or over 2^14
    states spread over it where the plain twin would take more than 30 s),
    with its time per proof of each kind; R1 / R2's permute entries, which no
@@ -1019,6 +1033,68 @@ SAMPLE_STATES = 1 << 14
 PLAIN_RATE_STATES = 1 << 20
 
 
+def dist_phase(torch, kernels, full, vm_bytes: bytes, vm_med: float, vm_peak: int, small_bytes: bytes) -> tuple:
+    """Phase 12: multi-device proving. (a) ``full`` (5b's program) under an
+    NCCL mesh of one rank, against 5b's bytes, median seconds ``vm_med`` and
+    peak ``vm_peak``; (b), (c) on ``bench_dist.RANKS`` gloo ranks sharing the card,
+    (c) against ``small_bytes`` (5a's CPU proof). Returns the launches and
+    shapes of (a)–(c) together, for phase 7."""
+    from miden_tpu_torch import bench_dist
+
+    kerns = {name: kern for name, (kern, _, _) in kernels.items()}
+    a = bench_dist.nccl_prove(full, kerns)
+    if a["bytes"] != vm_bytes:
+        raise AssertionError("phase 12a: the proof under the NCCL mesh differs from phase 5b's")
+    check_path(a["launches"], "poseidon2", "phase 12a")
+    log(f"  12a launches: {a['launches']}")
+    log_phase(f"phase 12a vm-fib-18 under use_mesh(make_mesh('cuda')), {a['backend']} world size {a['world']}: "
+              f"prove_program {a['seconds']:.4f} s, peak {a['peak_gib']:.3f} GiB (phase 5b without a mesh: median "
+              f"{vm_med:.4f} s, peak {vm_peak / 2**30:.3f} GiB); bytes == phase 5b's; {a['traffic']['gather']} "
+              f"bytes gathered")
+
+    t0 = time.perf_counter()
+    ranks = bench_dist.gloo_ranks()
+    spawn_s = time.perf_counter() - t0
+    log("  gloo collectives on CUDA tensors: " + "; ".join(f"{k} {v}" for k, v in ranks[0]["probe"].items()))
+    roots = {tuple(r["lde_tree"]["root"]) for r in ranks}
+    for k, r in enumerate(ranks):
+        b = r["lde_tree"]
+        missing = [name for name in bench_dist.COMMIT_KERNELS if not b["launches"][name]]
+        if not (b["rows_equal"] and b["layers_equal"] and b["matrices_equal"]) or len(roots) != 1 or missing:
+            raise AssertionError(f"phase 12b rank {k}: rows {b['rows_equal']}, layers {b['layers_equal']}, "
+                                 f"matrices {b['matrices_equal']}, roots {len(roots)}, not launched {missing}")
+        commit_launches = {name: b["launches"][name] for name in bench_dist.COMMIT_KERNELS}
+        log(f"  12b rank {k}: LDE rows {b['lde_rows']} and all {b['layers']} layers == single device; "
+            f"{b['seconds']:.4f} s (one device, the same work on this rank: {b['single_seconds']:.4f} s); "
+            f"sent {b['traffic']['exchange']} bytes in exchanges, received "
+            f"{b['traffic']['gather']} in gathers; launches {commit_launches}")
+    moved = sum(r["lde_tree"]["traffic"]["exchange"] + r["lde_tree"]["traffic"]["gather"] for r in ranks)
+    log_phase(f"phase 12b {bench_dist.RANKS} gloo ranks on one card, vm-fib-18's main trace shapes (2^18, 51) -> "
+              f"2^21 LDE rows: every rank's rows, layers and root == the single-device card result; sharded "
+              f"commit {max(r['lde_tree']['seconds'] for r in ranks):.4f} s (slowest rank), {moved} bytes moved "
+              f"in all; the ranks' whole run {spawn_s:.3f} s")
+    for k, r in enumerate(ranks[:2]):
+        c = r["program"]
+        if c["bytes"] != small_bytes:
+            raise AssertionError(f"phase 12c rank {k}: the proof differs from phase 5a's")
+        # a proof this small has no transform above 2^12 rows: K2 is not on its path
+        launched = {name for name, n in c["launches"].items() if n}
+        if launched != set(path_kernels("poseidon2")) - {"ntt_transpose_twiddle"}:
+            raise AssertionError(f"phase 12c rank {k}: launches {c['launches']}")
+    log_phase(f"phase 12c prove_program of VM fib repeat.{VM_SMALL_REPS} on 2 gloo ranks: both ranks' bytes == "
+              f"phase 5a's ({len(small_bytes)} bytes); "
+              f"{', '.join('%.3f' % r['program']['seconds'] for r in ranks[:2])} s")
+
+    launches = {name: 0 for name in kernels}
+    shapes = {name: {} for name in kernels}
+    for part in [a, *(r["lde_tree"] for r in ranks), *(r["program"] for r in ranks[:2])]:
+        for name in kernels:
+            launches[name] += part["launches"][name]
+            for key, count in part["shapes"][name].items():
+                shapes[name][key] = shapes[name].get(key, 0) + count
+    return launches, shapes
+
+
 def spread_states(torch, n: int):
     """Indices of SAMPLE_STATES of a launch's n states: the first and the
     last quarter of them, and half at an even stride over the launch (every
@@ -1062,7 +1138,8 @@ def kernel_rows(torch, kernels, proofs, errs, rand) -> list:
     its twin over every state of a launch unless the twin would take more
     than PLAIN_CHECK_S there (:func:`hold_sponge_launch`). ``proofs``:
     kind -> (launches, shapes) for "vm", "shaped", "session", "vm_rpo",
-    "vm_rpx", "blake3" (stdlib-blake3-18) and "recursion" (recursion-18)."""
+    "vm_rpx", "blake3" (stdlib-blake3-18), "recursion" (recursion-18) and
+    "dist" (phase 12's runs together)."""
     from miden_tpu_torch.bench_kernels import (
         HBM_BYTES_PER_S, INT32_MULS_PER_PERM, bench_case, bound_ms, time_ms,
     )
@@ -1418,11 +1495,14 @@ def main() -> int:
     # -- 11. the in-VM STARK verifier on vm-fib-18's proof ------------------------
     recursion_proof = recursion_phase(torch, kernels, dev, vm_proof)
 
+    # -- 12. multi-device: NCCL at world size 1, gloo ranks sharing the card -----
+    dist_proof = dist_phase(torch, kernels, full, vm_bytes, med, vm_peak, vm_cpu.to_bytes())
+
     # -- 7. kernels vs plain, and timings, at the proofs' shapes --------------
     rows = kernel_rows(torch, kernels, {
         "vm": (vm_launches, vm_shapes), "shaped": (launches, shapes),
         "session": (session_launches, session_shapes), **rescue_proofs, "blake3": blake3_proof,
-        "recursion": recursion_proof,
+        "recursion": recursion_proof, "dist": dist_proof,
     }, errs, rand)
     log_phase(f"phase 7 kernels vs plain and timings at the proofs' shapes on {card}")
 

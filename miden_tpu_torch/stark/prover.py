@@ -33,6 +33,10 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..dist.context import active_mesh
+from ..dist.lmcs_dist import build_tree_sharded
+from ..dist.mesh import gather_rows
+from ..dist.ntt_dist import coset_lde_sharded
 from ..field import gl
 from ..field import goldilocks as F
 from ..merkle import lmcs
@@ -91,7 +95,15 @@ def _as_device(m, device) -> torch.Tensor:
 
 def commit_traces(matrices: list, log_blowup: int, hash=lmcs.POSEIDON2_HASH) -> lmcs.LmcsTree:
     """LDE each trace (int64 tensor (n, w)) on its canonical coset and commit
-    them into one tree."""
+    them into one tree.
+
+    Under an active :func:`~..dist.context.use_mesh`, on the conditions of
+    ``miden_tpu/stark/prover.py:112-140``, the max-height LDE runs row-sharded
+    (cross stages exchanged between ranks) and a Poseidon2 tree as per-rank
+    subtrees under gathered top layers."""
+    mesh = active_mesh()
+    d = mesh.size if mesh is not None else 1
+    max_n = max(m.shape[0] for m in matrices)
     ldes = []
     for m in matrices:
         n, w = m.shape
@@ -99,8 +111,13 @@ def commit_traces(matrices: list, log_blowup: int, hash=lmcs.POSEIDON2_HASH) -> 
             ldes.append(torch.zeros((n << log_blowup, 0), dtype=torch.int64, device=m.device))
             continue
         shift = gl.canonical_lde_shift((n.bit_length() - 1) + log_blowup)
-        ldes.append(ntt.coset_lde(m, log_blowup, shift))
-    return lmcs.build_tree(ldes, hash=hash)
+        if mesh is not None and n == max_n and n % d == 0 and n // d >= 2:
+            ldes.append(coset_lde_sharded(m, log_blowup, shift, mesh))
+        else:
+            ldes.append(ntt.coset_lde(m, log_blowup, shift))
+    if mesh is not None and (max_n << log_blowup) % d == 0 and hash.name == "poseidon2":
+        return build_tree_sharded(ldes, mesh)
+    return lmcs.build_tree([gather_rows(lde, mesh) for lde in ldes], hash=hash)
 
 
 def _periodic_on_domain(pattern, n, log_d, shift, device) -> torch.Tensor:
@@ -239,8 +256,14 @@ def _quotient_chunks_dev(acc, domain: LiftedDomain, log_d: int, log_blowup: int)
 
 
 def commit_quotient(acc, domain: LiftedDomain, log_d: int, log_blowup: int, hash=lmcs.POSEIDON2_HASH):
-    """Commit the D quotient chunks' LDEs as one 2D-column matrix."""
-    return lmcs.build_tree([_quotient_chunks_dev(acc, domain, log_d, log_blowup)], hash=hash)
+    """Commit the D quotient chunks' LDEs as one 2D-column matrix; under an
+    active mesh a Poseidon2 tree is built row-sharded
+    (``miden_tpu/stark/prover.py:440-455``)."""
+    chunks = _quotient_chunks_dev(acc, domain, log_d, log_blowup)
+    mesh = active_mesh()
+    if mesh is not None and chunks.shape[0] % mesh.size == 0 and hash.name == "poseidon2":
+        return build_tree_sharded([chunks], mesh)
+    return lmcs.build_tree([chunks], hash=hash)
 
 
 def _ext_stack(scalars: list, device):

@@ -136,6 +136,18 @@ def build_all(names=None) -> float:
     return time.perf_counter() - t0
 
 
+def load_built(names=None) -> None:
+    """Load every kernel library that :func:`build_all` has built, raising if
+    one is missing or stale: for processes that must not run nvcc (ranks
+    spawned after their parent built, whose builds would race)."""
+    names = list(names or sorted(p.stem for p in CSRC.glob("*.cu")))
+    with _lock:
+        for name in names:
+            if _stale(name):
+                raise KernelError(f"{_lib_path(name).name} is missing or stale: build it before starting ranks")
+            _libs.setdefault(name, ctypes.CDLL(str(_lib_path(name))))
+
+
 def load(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is None:
