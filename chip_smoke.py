@@ -8,11 +8,15 @@ Phases, one line each (plus details):
 1. build the CUDA kernels from miden_tpu_torch/csrc (one nvcc per source,
    in parallel) and the C trace generator (miden_tpu_torch/native);
 2. hold each kernel entry (K1 ntt_col_transform, K2 ntt_transpose_twiddle,
-   K3 poseidon2_permute, poseidon2_absorb_rows, poseidon2_compress_rows, and
-   the same three entries of R1 RPO-256 and R2 RPX-256) against its plain
-   torch twin on the card, exact equality, on inputs from a seeded numpy
-   generator, and R1 / R2's entries also on states of edge values
-   (hash.rescue.hold_edge_states) against the twin and rescue_host;
+   K3 poseidon2_permute, poseidon2_absorb_rows, poseidon2_compress_rows, the
+   same three entries of R1 RPO-256 and R2 RPX-256, and Q1 constraints_eval,
+   the recorded constraint program of stark/interp.py) against its plain
+   torch twin on the card, exact equality, on inputs from a seeded
+   generator (Q1: the chiplets and Poseidon2 VM AIRs and an AIR with
+   preprocessed columns over 2^12 points, reading row-strided views), and
+   R1 / R2's entries also
+   on states of edge values (hash.rescue.hold_edge_states) against the
+   twin and rescue_host;
 3. prove miden_shaped_statement(10) at MIDEN_PARAMS on the card and on the
    CPU: the proof bytes must be equal and the port's verifier must accept;
 4. prove miden_shaped_statement(18) at MIDEN_PARAMS on the card (core
@@ -28,8 +32,11 @@ Phases, one line each (plus details):
    clock around the whole call, as bench.py times it), execute_and_trace's
    time beside them, the AIRs' log heights, the kernel launch counts of one
    proof (every entry of the path must be launched, and no other), the span
-   breakdown of one traced prove, peak memory, the proof size,
-   verify_program's verdict and the top of the stack against fib mod p;
+   breakdown of one traced prove ("evaluate constraints" per AIR too), peak
+   memory, the proof size, verify_program's verdict and the top of the
+   stack against fib mod p; on the warm-up's inputs, each VM AIR's quotient
+   through Q1 equals the eager evaluator's over its whole domain (the core's
+   2^21 points);
    (c) the trace of (b) was written by the C trace generator, not the
    Python interpreter;
    5c. the same facade under PcsParams(hash_name="rpo256" | "rpx256"), whose
@@ -103,7 +110,11 @@ Phases, one line each (plus details):
    each shape; a sponge entry over every state of a launch, or over 2^14
    states spread over it where the plain twin would take more than 30 s),
    with its time per proof of each kind; R1 / R2's permute entries, which no
-   proof launches, at n = 2^16;
+   proof launches, at n = 2^16. Q1 is held on the proofs' own inputs
+   instead (ProgramChecks): at every (AIR, points) shape any proof of the
+   script launched it with, right after the first run at that shape, over
+   every point (2^14 spread points where the twin would take over 30 s),
+   timed there; phase 7 sums its launches and ms per proof of each kind;
 9. the user entry surfaces on the card: (a) the command line on the program
    of 5(b): ``python -m miden_tpu_torch`` compile -o, run, prove -o (on
    the card, its wall time printed) and verify, each in a subprocess; the
@@ -180,14 +191,6 @@ def nvidia_smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def int32_mul_rate(torch) -> float:
-    """32-bit integer multiplies per second: 64 INT32 lanes per SM per clock
-    (Hopper SM) x SMs x the card's maximum SM clock."""
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    mhz = float(nvidia_smi("clocks.max.sm").split()[0])
-    return 64 * sms * mhz * 1e6
-
-
 def max_abs_err(a, b) -> int:
     """Largest |a − b| over the u64 values (0 when equal)."""
     from miden_tpu_torch.field.goldilocks import to_numpy
@@ -234,6 +237,7 @@ def kernel_table() -> dict:
     """Kernel entry -> (its cuda.Kernel, source, the TPU kernel it replaces)."""
     from miden_tpu_torch.hash import poseidon2, rescue
     from miden_tpu_torch.ntt import ntt
+    from miden_tpu_torch.stark import interp
 
     return {
         "ntt_col_transform": (ntt.COL_KERNEL, "miden_tpu_torch/csrc/ntt.cu",
@@ -253,21 +257,40 @@ def kernel_table() -> dict:
            for perm, sponge, line in (("rpo", rescue.RPO, 180), ("rpx", rescue.RPX, 215))
            for entry, attr in (("permute", "PERMUTE_KERNEL"), ("absorb_rows", "ABSORB_KERNEL"),
                                ("compress_rows", "COMPRESS_KERNEL"))},
+        # Q1 runs the recorded constraint program, which miden_tpu runs as an
+        # XLA lax.scan (interp.py:273 _run_chunk), with no Pallas kernel
+        Q1: (interp.Q1_KERNEL, "miden_tpu_torch/csrc/constraints.cu", "miden_tpu/stark/interp.py:273"),
     }
 
 
-def path_kernels(hash_name: str) -> list:
+#: the name of Q1, the recorded constraint program, in the kernel table
+Q1 = "constraints_eval"
+
+
+def path_kernels(hash_name: str, program: bool = True) -> list:
     """The kernel entries a proof launches under commitment hash
     ``hash_name``: K1, K2 and K3's permute (the transcript is Poseidon2
-    whatever the hash) and the leaf sponge and Merkle layer of the hash."""
+    whatever the hash), the leaf sponge and Merkle layer of the hash, and
+    Q1 where ``program``: some AIR of the proof goes through its recorded
+    constraint program (every VM proof: :func:`routes_program`)."""
     leaf = {"poseidon2": "poseidon2", "rpo256": "rpo", "rpx256": "rpx"}[hash_name]
     return ["ntt_col_transform", "ntt_transpose_twiddle", "poseidon2_permute",
-            f"{leaf}_absorb_rows", f"{leaf}_compress_rows"]
+            f"{leaf}_absorb_rows", f"{leaf}_compress_rows"] + ([Q1] if program else [])
 
 
-def check_path(launches: dict, hash_name: str, what: str) -> None:
+def routes_program(airs, log_heights) -> bool:
+    """Whether a proof of ``airs`` at ``log_heights`` evaluates some AIR's
+    quotient through its recorded program (Q1 on the card)."""
+    from miden_tpu_torch.stark.domains import log_quotient_degree
+    from miden_tpu_torch.stark.prover import uses_program
+
+    return any(uses_program(a, 1 << h, log_quotient_degree(a.constraint_degree()))
+               for a, h in zip(airs, log_heights))
+
+
+def check_path(launches: dict, hash_name: str, what: str, program: bool = True) -> None:
     """Every entry of the path was launched, and no other."""
-    path = path_kernels(hash_name)
+    path = path_kernels(hash_name, program)
     missing = [k for k in path if not launches[k]]
     stray = [k for k, n in launches.items() if n and k not in path]
     if missing or stray:
@@ -383,6 +406,7 @@ def session_phase(torch, kernels, dev: str, pinned) -> tuple:
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     runs = dict(native_trace.RUNS)
+    drain_program_checks()
     if [int(v) for v in out.stack[:8]] != top:
         raise AssertionError("the program's merge path root differs from the host's keccak256")
     verify_program(proof, params=MIDEN_PARAMS, partial=True)
@@ -417,6 +441,7 @@ def session_phase(torch, kernels, dev: str, pinned) -> tuple:
         S.prove_deferred_state_dag(out.deferred_state, MIDEN_PARAMS, device=dev)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
+    drain_program_checks()
     # one timed call: with phase 11 a second one would crowd the 1200 s limit
     torch.cuda.reset_peak_memory_stats()
     session_shapes = {name: {} for name in kernels}
@@ -442,9 +467,11 @@ def session_phase(torch, kernels, dev: str, pinned) -> tuple:
         pass
     else:
         raise AssertionError("a session verified against a tampered root")
-    check_path(session_launches, "poseidon2", "the session proof")
-    airs = [type(a).__name__ for a in S._session_statement(
-        session.root, session.n_claims, session.n_u256, session.n_kmerge, session.n_ec).multi_air.airs]
+    session_airs = S._session_statement(
+        session.root, session.n_claims, session.n_u256, session.n_kmerge, session.n_ec).multi_air.airs
+    check_path(session_launches, "poseidon2", "the session proof",
+               program=routes_program(session_airs, session.stark.log_heights))
+    airs = [type(a).__name__ for a in session_airs]
     log("  session AIRs and log heights: " + ", ".join(
         f"{a} {h}" for a, h in zip(airs, session.stark.log_heights)))
     log("  spans (traced warm-up session proof, synchronized at span edges): " + "; ".join(
@@ -520,6 +547,7 @@ def rescue_phase(torch, kernels, dev: str) -> dict:
                   f"prove_program {prove_s:.4f} s (one timed call{warm}), peak memory {peak / 2**30:.3f} GiB, "
                   f"proof {len(proof.to_bytes())} bytes, verified in {verify_s:.3f} s, top of stack == fib mod p")
         out[kind] = (launches, shapes)
+        drain_program_checks()
     return out
 
 
@@ -682,6 +710,7 @@ def entry_phase(torch, kernels, dev: str, vm_launches: dict, vm_bytes: bytes, sm
               f"{want.clk} equal")
 
     # -- (d) byte-hash commitments at a trace's size -----------------------
+    drain_program_checks()
     byte_hash_phase(torch, dev)
 
 
@@ -804,6 +833,7 @@ def stdlib_phase(torch, kernels, dev: str) -> tuple:
     # -- (a) stdlib-small, card == CPU ---------------------------------------
     small = assemble_with_stdlib(B.U64_PROGRAM)
     out, on_card = prove_program(small, params=MIDEN_PARAMS, event_handlers=handlers, device=dev)
+    drain_program_checks()
     t0 = time.perf_counter()
     _, on_cpu = prove_program(small, params=MIDEN_PARAMS, event_handlers=handlers, device="cpu")
     cpu_s = time.perf_counter() - t0
@@ -824,6 +854,7 @@ def stdlib_phase(torch, kernels, dev: str) -> tuple:
         prove_program(prog, inputs, params=MIDEN_PARAMS, event_handlers=handlers, device=dev)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
+    drain_program_checks()
     # one timed call: with phase 11 a second one would crowd the 1200 s limit
     torch.cuda.reset_peak_memory_stats()
     shapes = {name: {} for name in kernels}
@@ -871,6 +902,7 @@ def stdlib_phase(torch, kernels, dev: str) -> tuple:
                                     event_handlers=handlers, device=dev)
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
+    drain_program_checks()
     if [int(v) for v in host_out.stack[:16]] != want or list(proof.stack_outputs) != want:
         raise AssertionError("stdlib-host: the outputs differ from the host's sha256, poseidon2 and aead values")
     verify_program(proof, params=MIDEN_PARAMS)
@@ -982,6 +1014,7 @@ def recursion_phase(torch, kernels, dev: str, fib_proof) -> tuple:
     shapes = {name: {} for name in kernels}
     record_shapes(kernels, shapes)
     runs, peak = dict(native_trace.RUNS), torch.cuda.max_memory_allocated()
+    drain_program_checks()
     check_path(launches, "poseidon2", "the replay program's proof")
     want = [1, *fx.z, *fx.alpha_deep, *fx.beta_deep]
     if [int(v) for v in out.stack[:7]] != want or list(proof.stack_outputs[:7]) != want:
@@ -1010,6 +1043,7 @@ def recursion_phase(torch, kernels, dev: str, fib_proof) -> tuple:
     t0 = time.perf_counter()
     _, on_cpu = prove_program(fri, params=TEST_PARAMS, event_handlers=handlers, device="cpu")
     cpu_s = time.perf_counter() - t0
+    drain_program_checks()
     if on_card.to_bytes() != on_cpu.to_bytes():
         raise AssertionError("fri_query_program: the card's and the CPU's proof bytes differ")
     verify_program(on_card, params=TEST_PARAMS, partial=True)
@@ -1026,8 +1060,12 @@ ROW_KIND = {"rpo": "vm_rpo", "rpx": "vm_rpx"}
 
 #: a sponge launch is held to its plain twin over every state where the twin
 #: would take at most this many seconds, and above that over SAMPLE_STATES
-#: states spread over the launch
+#: states spread over the launch (Q1: points)
 PLAIN_CHECK_S = 30.0
+#: device seconds of Q1's plain twin an instruction-point beyond its launches
+#: (an H100 80GB HBM3 at 700 W in this script's Q1 lines: the VM core's 2^21
+#: points, 2 blocks, took 6.2 s at 9.5 us a launch)
+TWIN_POINT_S = 5e-11
 SAMPLE_STATES = 1 << 14
 #: states of the batch that measures a plain permutation's seconds per state
 PLAIN_RATE_STATES = 1 << 20
@@ -1085,6 +1123,7 @@ def dist_phase(torch, kernels, full, vm_bytes: bytes, vm_med: float, vm_peak: in
               f"phase 5a's ({len(small_bytes)} bytes); "
               f"{', '.join('%.3f' % r['program']['seconds'] for r in ranks[:2])} s")
 
+    drain_program_checks()
     launches = {name: 0 for name in kernels}
     shapes = {name: {} for name in kernels}
     for part in [a, *(r["lde_tree"] for r in ranks), *(r["program"] for r in ranks[:2])]:
@@ -1093,6 +1132,164 @@ def dist_phase(torch, kernels, full, vm_bytes: bytes, vm_med: float, vm_peak: in
             for key, count in part["shapes"][name].items():
                 shapes[name][key] = shapes[name].get(key, 0) + count
     return launches, shapes
+
+
+def q1_phase2_airs() -> list:
+    """(AIR, LDE row stride) of phase 2's Q1 checks on row-strided views
+    (the proofs' VM quotients read stride-1 LDEs at MIDEN_PARAMS): two VM
+    AIRs (Poseidon2's with 16 periodic columns) and an AIR with
+    preprocessed columns. The core is held at every proof shape."""
+    from miden_tpu_torch.bench_airs import SquareLutAir
+    from miden_tpu_torch.vm.constraints.chiplets_air import ChipletsVmAir
+    from miden_tpu_torch.vm.constraints.poseidon2_air import Poseidon2PermutationAir
+
+    return [(ChipletsVmAir(), 2), (Poseidon2PermutationAir(), 2), (SquareLutAir(12), 4)]
+
+
+def q1_random_check(torch, rand, air, stride: int) -> tuple:
+    """Q1 against its twin on random card inputs over 2^12 points (next rows
+    8 ahead, wrapping at the end), the LDE sources row-strided views.
+    Returns (max |diff|, points)."""
+    from miden_tpu_torch.stark import interp
+
+    nd = 1 << 12
+
+    def view(k):
+        return rand((nd * stride, k))[::stride] if k else None
+
+    prog, inp = interp.program_inputs(
+        air, view(air.width), view(2 * air.aux_width), tuple(rand((nd,)) for _ in range(3)),
+        rand((max(40, air.num_public_values),)), rand((air.num_randomness, 2)), rand((air.num_aux_values, 2)),
+        [rand((nd,)) for _ in air.periodic_columns], rand((2,)), view(air.preprocessed_width), 8,
+    )
+    return max_abs_err(interp.run_program_kernel(prog, inp), interp.run_program_plain(prog, inp)), nd
+
+
+class ProgramChecks:
+    """Holds Q1 to its plain twin at every (AIR, points) shape the script's
+    proofs launch it with, on the proofs' own inputs. While installed it
+    watches ``stark.prover.evaluate_quotient``: the first call on the card at
+    a new shape keeps its arguments (the AIR's LDEs and challenges, which the
+    proof holds to its end anyway), and :meth:`drain`, called after the
+    run's numbers are read, checks each kept shape and lets its arguments go:
+    Q1 against the twin over every point where the twin would take at most
+    PLAIN_CHECK_S (:meth:`plain_estimate_s`), else over
+    :func:`spread_states`' SAMPLE_STATES points
+    (their last quarter takes the last D points, whose next rows wrap
+    around); Q1's ms there (CUDA events) and its bound. With ``eager`` set
+    at a shape's first call, the quotient through Q1 is also held to the
+    eager evaluator's over the whole domain."""
+
+    def __init__(self, torch, launch_us: float):
+        self.torch = torch
+        self.launch_s = launch_us * 1e-6  # the host's cost of one launch
+        self.pending: list = []
+        self.held: dict = {}  # (AIR, points) -> what the check found
+        self.eager = False
+
+    def plain_estimate_s(self, prog, nd: int) -> float:
+        """Seconds the plain twin takes over all nd points: some 25 launches
+        an instruction over each block (launch-bound up to a block's 2^20
+        points), plus TWIN_POINT_S an instruction-point for the device's
+        work."""
+        from miden_tpu_torch.stark import interp
+
+        blocks = nd // interp.plain_block_points(prog, nd)
+        return prog.n_instr * (blocks * 25 * self.launch_s + nd * TWIN_POINT_S)
+
+    def install(self) -> None:
+        from miden_tpu_torch.stark import prover
+
+        real = prover.evaluate_quotient
+
+        def watched(air, domain, main_lde, aux_lde, log_d, *rest):
+            if main_lde.is_cuda and prover.uses_program(air, domain.trace_height, log_d):
+                key = (type(air).__name__, domain.trace_height << log_d)
+                if key not in self.held and all(k != key for k, _, _ in self.pending):
+                    self.pending.append((key, (air, domain, main_lde, aux_lde, log_d, *rest), self.eager))
+            return real(air, domain, main_lde, aux_lde, log_d, *rest)
+
+        prover.evaluate_quotient = watched
+
+    def drain(self) -> None:
+        from miden_tpu_torch.bench_kernels import int32_mul_rate, time_ms
+        from miden_tpu_torch.bench_quotient import bound_ms
+        from miden_tpu_torch.stark import interp, prover
+
+        torch = self.torch
+        mul_rate = int32_mul_rate()
+        pending, self.pending = self.pending, []
+        for key, args, eager in pending:
+            t0 = time.perf_counter()
+            prog, inp, _ = prover.quotient_program_inputs(*args)
+            nd = inp.nd
+            got = interp.run_program_kernel(prog, inp)
+            est_s = self.plain_estimate_s(prog, nd)
+            if est_s <= PLAIN_CHECK_S:
+                out = []
+                plain_ms = time_ms(lambda: out.append(interp.run_program_plain(prog, inp)), 1, warm=False)
+                err, points = max_abs_err(got, out[0]), nd
+                del out
+            else:
+                idx = spread_states(torch, nd)
+                err, points = max_abs_err(got[idx], interp.run_program_plain(prog, inp, idx)), len(idx)
+                plain_ms = None
+            ms = time_ms(lambda: interp.run_program_kernel(prog, inp), 3)
+            b_ms, b_by = bound_ms(prog, inp, mul_rate)
+            eager_equal = None
+            if eager:
+                eager_equal = torch.equal(prover.evaluate_quotient_program(*args),
+                                          prover.evaluate_quotient_eager(*args))
+            self.held[key] = {"err": err, "points": points, "nd": nd, "ms": ms, "plain_ms": plain_ms,
+                              "bound_ms": b_ms, "bound_by": b_by, "eager_equal": eager_equal,
+                              "instructions": prog.n_instr, "frame": prog.frame_size}
+            del got, prog, inp, args
+            torch.cuda.empty_cache()
+            log(f"  {Q1} at {key}: == plain twin over {points} of {nd} points, max |diff| {err}"
+                + ("" if eager_equal is None else
+                   f"; the quotient through Q1 {'==' if eager_equal else '!='} the eager evaluator's "
+                   f"over all {nd} points")
+                + f"; {ms:.4f} ms/launch (plain {'%.1f' % plain_ms if plain_ms is not None else 'not timed'}"
+                f" ms, estimated {1e3 * est_s:.1f}; bound {b_ms:.4f} ms by {b_by}) "
+                f"({time.perf_counter() - t0:.1f} s)")
+            if err or eager_equal is False:
+                raise AssertionError(f"{Q1} at {key}: disagrees with its plain twin or the eager evaluator")
+
+    def row(self, proofs) -> dict:
+        """Q1's JSON row: its largest shape on the VM proof, and its launches
+        and ms per proof of each kind (Σ launches × ms over its shapes)."""
+        missing = sorted({k for _, shapes in proofs.values() for k in shapes[Q1]} - set(self.held))
+        if missing:
+            raise AssertionError(f"{Q1} launched at shapes never held to its twin: {missing}")
+        vm_keys = proofs["vm"][1][Q1]
+        key = max(vm_keys, key=lambda k: self.held[k]["nd"] * self.held[k]["instructions"])
+        rec = self.held[key]
+        per_proof = {kind: sum(c * self.held[k]["ms"] for k, c in shapes[Q1].items())
+                     for kind, (_, shapes) in proofs.items()}
+        log(f"  {Q1}: kernel == plain at all {len(self.held)} shapes ("
+            + ", ".join(f"{k[0]} {k[1]}: {r['points']} points" for k, r in sorted(self.held.items()))
+            + f"), max |diff| {max(r['err'] for r in self.held.values())}; per proof: " + "; ".join(
+                f"{kind} {proofs[kind][0][Q1]} launches over {len(proofs[kind][1][Q1])} shapes, "
+                f"{per_proof[kind]:.3f} ms" for kind in proofs))
+        return {
+            "name": Q1, "route": "cuda", "source": "miden_tpu_torch/csrc/constraints.cu",
+            "replaces": "miden_tpu/stark/interp.py:273", "launches": proofs["vm"][0][Q1],
+            "max_abs_err": max(r["err"] for r in self.held.values()), "ms": round(rec["ms"], 6),
+            "plain_ms": round(rec["plain_ms"], 6), "bound_ms": round(rec["bound_ms"], 6),
+            "bound_by": rec["bound_by"], "library_ms": None, "cell": "vm", "shape": list(key),
+            "launches_at_shape": vm_keys[key],
+            "per_proof": {kind: {"launches": proofs[kind][0][Q1], "ms": round(per_proof[kind], 6)}
+                          for kind in proofs},
+        }
+
+
+#: the Q1 checks of the run (installed in main after the build)
+PROGRAM_CHECKS = None
+
+
+def drain_program_checks() -> None:
+    if PROGRAM_CHECKS is not None:
+        PROGRAM_CHECKS.drain()
 
 
 def spread_states(torch, n: int):
@@ -1141,7 +1338,7 @@ def kernel_rows(torch, kernels, proofs, errs, rand) -> list:
     "vm_rpx", "blake3" (stdlib-blake3-18), "recursion" (recursion-18) and
     "dist" (phase 12's runs together)."""
     from miden_tpu_torch.bench_kernels import (
-        HBM_BYTES_PER_S, INT32_MULS_PER_PERM, bench_case, bound_ms, time_ms,
+        HBM_BYTES_PER_S, INT32_MULS_PER_PERM, bench_case, bound_ms, int32_mul_rate, time_ms,
     )
     from miden_tpu_torch.hash import poseidon2, rescue
     from miden_tpu_torch.ntt import ntt
@@ -1153,9 +1350,14 @@ def kernel_rows(torch, kernels, proofs, errs, rand) -> list:
         s_per_perm[perm] = time_ms(lambda: sp.permute_plain(s), 1, warm=False) / 1e3 / PLAIN_RATE_STATES
     log("  plain twins' s per permutation at 2^20 states: " + ", ".join(
         f"{perm} {v:.4g}" for perm, v in s_per_perm.items()))
-    mul_rate = int32_mul_rate(torch)
+    mul_rate = int32_mul_rate()
     rows = []
     for name, (kern, source, replaces) in kernels.items():
+        if name == Q1:  # held on the proofs' own inputs (ProgramChecks)
+            row = PROGRAM_CHECKS.row(proofs)
+            errs[name] = row["max_abs_err"] = max(row["max_abs_err"], errs[name])
+            rows.append(row)
+            continue
         entry_t0 = time.perf_counter()
         perm = name.split("_")[0]
         main = ROW_KIND.get(perm, "vm")
@@ -1250,7 +1452,7 @@ def main() -> int:
 
     # -- 1. build ------------------------------------------------------------
     secs = cuda.build_all()
-    for name in ("ntt", "poseidon2", "rescue"):
+    for name in ("ntt", "poseidon2", "rescue", "constraints"):
         ptxas = [
             ln.strip() for ln in (cuda.BUILD_DIR / f"{name}.log").read_text().splitlines()
             if "registers" in ln or "spill" in ln
@@ -1258,11 +1460,15 @@ def main() -> int:
         log(f"  ptxas {name}: " + " | ".join(ptxas))
     t0 = time.perf_counter()
     native.trace_gen_lib()
-    log_phase(f"phase 1 build: {secs:.3f} s for csrc/ntt.cu, csrc/poseidon2.cu and csrc/rescue.cu, "
+    log_phase(f"phase 1 build: {secs:.3f} s for csrc/ntt.cu, csrc/poseidon2.cu, csrc/rescue.cu and "
+              f"csrc/constraints.cu, "
         f"{time.perf_counter() - t0:.3f} s for native/trace_gen.c ({native.LIBRARY.name})")
     from miden_tpu_torch.bench_session import _launch_us
 
     log(f"  host launch cost: {_launch_us(torch):.2f} us a one-element add")
+    global PROGRAM_CHECKS
+    PROGRAM_CHECKS = ProgramChecks(torch, _launch_us(torch))
+    PROGRAM_CHECKS.install()
 
     # -- 2. kernels against their plain twins -------------------------------
     dev = "cuda"
@@ -1343,6 +1549,10 @@ def main() -> int:
                 err = max_abs_err(fast(x, inverse), ntt.transform_plain(x, inverse, dit))
                 errs["ntt_transpose_twiddle"] = max(errs["ntt_transpose_twiddle"], err)
                 checked["ntt_transpose_twiddle"] += 1
+    for air, stride in q1_phase2_airs():
+        err, checked_points = q1_random_check(torch, rand, air, stride)
+        errs[Q1] = max(errs[Q1], err)
+        checked[Q1] += 1
     torch.cuda.synchronize()
     for name, (kern, _, _) in kernels.items():
         log(f"  {name}: {checked[name]} comparisons, {kern.launches} launches, max |diff| {errs[name]}")
@@ -1396,7 +1606,7 @@ def main() -> int:
     verify_s = time.perf_counter() - t0
     if digest != out.digest:
         raise AssertionError("full-size proof rejected")
-    check_path(launches, "poseidon2", "the shaped proof")
+    check_path(launches, "poseidon2", "the shaped proof", program=False)
     log("  spans (traced prove, synchronized at span edges): " + "; ".join(
         f"{k} {v[0]:.4f} s" for k, v in rec.totals.items()
     ))
@@ -1412,6 +1622,7 @@ def main() -> int:
     # -- 5. the VM facade: prove_program / verify_program --------------------
     small = assemble(fib_program(VM_SMALL_REPS))
     out_gpu, vm_gpu = prove_program(small, params=MIDEN_PARAMS, device=dev)
+    drain_program_checks()
     t0 = time.perf_counter()
     _, vm_cpu = prove_program(small, params=MIDEN_PARAMS, device="cpu")
     cpu_s = time.perf_counter() - t0
@@ -1425,10 +1636,13 @@ def main() -> int:
         f"CPU prove {cpu_s:.3f} s")
 
     full = assemble(fib_program(VM_FULL_REPS))
+    PROGRAM_CHECKS.eager = True  # the first vm-fib-18 proof: Q1 == the eager evaluator too
     t0 = time.perf_counter()
     prove_program(full, params=MIDEN_PARAMS, device=dev)
     torch.cuda.synchronize()
     vm_warm_s = time.perf_counter() - t0
+    PROGRAM_CHECKS.eager = False
+    drain_program_checks()
     torch.cuda.reset_peak_memory_stats()
     vm_times, vm_out, vm_proof = [], None, None
     for rep in range(3):
@@ -1468,6 +1682,8 @@ def main() -> int:
     log("  spans (traced prove_program, synchronized at span edges): " + "; ".join(
         f"{k} {v[0]:.4f} s" for k, v in vm_rec.totals.items()
     ))
+    log("  evaluate constraints, per AIR: " + ", ".join(
+        f"{air} {v[0]:.4f} s" for (name, air), v in vm_rec.by_air.items() if name == "evaluate constraints"))
     log(f"  launches per VM proof: {vm_launches}")
     log(f"  host load average after the timed calls: {os.getloadavg()[0]:.2f} over {os.cpu_count()} CPUs")
     log(f"  C trace generator: {native_runs['block']} blocks, {native_runs['rows']} of "

@@ -85,6 +85,9 @@ KERNELS = {
        for name in ("rpo", "rpx")
        for entry, attr in (("permute", "PERMUTE_KERNEL"), ("absorb_rows", "ABSORB_KERNEL"),
                            ("compress_rows", "COMPRESS_KERNEL"))},
+    # Q1 runs a recorded program on a proof's own inputs: bench_quotient and
+    # chip_smoke time it there; it has no random-input case below
+    "constraints_eval": ("stark.interp", "Q1_KERNEL"),
 }
 
 
@@ -112,6 +115,16 @@ def in_turns(a, b, reps: int) -> tuple:
     """(a, b) ms as the means of a, b, b, a."""
     ta1, tb1, tb2, ta2 = time_ms(a, reps), time_ms(b, reps), time_ms(b, reps), time_ms(a, reps)
     return (ta1 + ta2) / 2, (tb1 + tb2) / 2
+
+
+def int32_mul_rate() -> float:
+    """32-bit integer multiplies per second: 64 INT32 lanes per SM per clock
+    (Hopper SM) x SMs x the card's maximum SM clock."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.split()[0]
+    return 64 * torch.cuda.get_device_properties(0).multi_processor_count * float(mhz) * 1e6
 
 
 def bound_ms(case: dict, mul_rate: float) -> float:
@@ -526,6 +539,8 @@ def main(argv=None) -> int:
     mods = {label: (t.mod("ntt.ntt"), sponges(t.mod)) for label, t in trees.items()}
     per_proof = {label: collections.Counter() for label in trees}
     for symbol in KERNELS:
+        if symbol == "constraints_eval":
+            continue
         have = [label for label in trees if symbol in shapes[label]]
         keys = sorted(set().union(*(shapes[label][symbol] for label in have)))
         for seed, key in enumerate(keys):

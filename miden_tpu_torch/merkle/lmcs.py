@@ -300,6 +300,18 @@ def emit_opening_hints(channel, host_vals: np.ndarray, meta, raw_indices) -> Non
     assert sib_base + depth * q * 4 == len(host_vals)
 
 
+def prove_batch(tree: LmcsTree, indices: Sequence[int], channel) -> None:
+    """Open ``tree`` at the sorted unique ``indices`` (its own domain order),
+    streaming hints into ``channel``: the aligned rows per index per matrix,
+    then the sibling digests of :func:`sibling_schedule` (the prover side of
+    :func:`verify_batch`; ``miden_tpu/merkle/lmcs.py:470``). One device
+    gather and one readback per tree."""
+    uniq = sorted({int(i) for i in indices})
+    idx = torch.tensor(uniq, dtype=torch.int64, device=tree.layers[0].device)
+    flat, meta = gather_query_data(tree, idx)
+    emit_opening_hints(channel, to_numpy(flat), meta, uniq)
+
+
 def verify_batch(
     commitment,
     widths: Sequence[int],

@@ -44,7 +44,7 @@ from ..ntt import ntt
 from ..transcript.challenger import DuplexChallenger, TranscriptData
 from ..transcript.device_challenger import DeviceChallenger, DeviceProverChannel
 from ..utils.tracing import span
-from . import pcs
+from . import interp, pcs
 from .air import Air, Expr, Folder, MultiAir, VectorBackend
 from .domains import LiftedDomain, log_quotient_degree
 from .params import PcsParams
@@ -130,15 +130,19 @@ def _periodic_on_domain(pattern, n, log_d, shift, device) -> torch.Tensor:
     return small[:, 0].repeat(n // p)
 
 
-#: log2 of the quotient-domain points evaluated at once. A VM core AIR at
-#: 2^18 rows has a 2^21-point quotient domain, where one stacked family of a
-#: few hundred constraints alone is G × 2^21 × 2 int64 (8.6 GB) and the whole
-#: evaluation does not fit 80 GB; the constraints are pointwise, so blocks
-#: give the same values. Each block re-issues every constraint's launches,
-#: so the block is as large as fits: on an H100 80GB the core's proof peaks
-#: at 68.8 GiB with 2^20 points and 36.2 GiB with 2^19, and is 22 % faster
-#: (``python3 -m miden_tpu_torch.bench_quotient``).
-QUOTIENT_BLOCK_LOG = 20
+#: quotient domains of at least this many points go through the recorded
+#: constraint program whatever the AIR (miden_tpu/stark/prover.py:176-197)
+PROGRAM_MIN_POINTS = 1 << 21
+
+
+def uses_program(air: Air, n: int, log_d: int) -> bool:
+    """Whether an AIR of n rows and quotient degree 2^log_d is evaluated by
+    its recorded constraint program (:mod:`.interp`, Q1 on the card) rather
+    than the eager evaluator: the AIRs that declare ``prefer_interp`` (the
+    three VM AIRs) and every domain of PROGRAM_MIN_POINTS or more, as in
+    ``miden_tpu``. The choice depends on the AIR and its size only, never on
+    the device."""
+    return getattr(air, "prefer_interp", False) or (n << log_d) >= PROGRAM_MIN_POINTS
 
 
 def evaluate_quotient(
@@ -153,30 +157,24 @@ def evaluate_quotient(
     aux_values,
     pp_lde=None,
 ):
-    """α-folded constraints / Z_H over the native quotient coset (the
-    ``_evaluate_quotient_dev`` formulation of ``miden_tpu``): every
-    constraint is evaluated with torch ops over blocks of
-    2^``QUOTIENT_BLOCK_LOG`` coset points at once. ``pp_lde`` is the AIR's
-    committed preprocessed LDE, when it declares preprocessed columns.
-    Returns (n·D, 2)."""
-    device = main_lde.device
+    """α-folded constraints / Z_H over the native quotient coset, (n·D, 2):
+    through the AIR's recorded program where :func:`uses_program` says so,
+    else through the eager evaluator. ``pp_lde`` is the AIR's committed
+    preprocessed LDE, when it declares preprocessed columns."""
+    args = (air, domain, main_lde, aux_lde, log_d, alpha, publics, randomness, aux_values, pp_lde)
+    if uses_program(air, domain.trace_height, log_d):
+        return evaluate_quotient_program(*args)
+    return evaluate_quotient_eager(*args)
+
+
+def _coset_tables(air: Air, domain: LiftedDomain, log_d: int, device) -> tuple:
+    """The quotient coset's selectors (is-first, is-last, is-transition),
+    periodic columns and 1/Z_H, each (n·D,). Z_H(x_i) = shift^n·ω_D^{i mod
+    D} − 1 takes D distinct values."""
     n = domain.trace_height
     d = 1 << log_d
     nd = n * d
-    stride = domain.lde_height // nd
     shift = domain.lde_shift
-
-    # columns as contiguous rows: (w, nd), and the next-row view rolled by D
-    main_t = main_lde[::stride].T.contiguous()
-    main_next = torch.roll(main_t, -d, dims=1)
-    if aux_lde is not None:
-        aux_t = aux_lde[::stride].T.contiguous()
-        aux_next = torch.roll(aux_t, -d, dims=1)
-    if pp_lde is not None:
-        pp_t = pp_lde[::stride].T.contiguous()
-        pp_next = torch.roll(pp_t, -d, dims=1)
-
-    # Z_H(x_i) = shift^n·ω_D^{i mod D} − 1 takes D distinct values
     pts = pcs.coset_points(nd.bit_length() - 1, shift, device)
     z_vals = []
     v = gl.exp_power_of_2(shift, domain.log_trace_height)
@@ -194,6 +192,71 @@ def evaluate_quotient(
     periodic = [_periodic_on_domain(p, n, log_d, shift, device) for p in air.periodic_columns]
     inv_z = [gl.inv(zv) for zv in z_vals]
     inv_tile = F.to_torch(np.asarray(inv_z, dtype=np.uint64), device).repeat(n)
+    return sels, periodic, inv_tile
+
+
+def quotient_program_inputs(
+    air: Air, domain: LiftedDomain, main_lde, aux_lde, log_d: int, alpha, publics, randomness,
+    aux_values, pp_lde=None,
+) -> tuple:
+    """``(prog, inputs, 1/Z_H)`` of :func:`evaluate_quotient_program`: the
+    AIR's program and its run over the quotient coset, read straight out of
+    the LDEs (a row-strided view; current and next rows, with no transposed
+    or rolled copy), and the (n·D,) inverse vanishing values."""
+    nd = domain.trace_height << log_d
+    stride = domain.lde_height // nd
+    sels, periodic, inv_tile = _coset_tables(air, domain, log_d, main_lde.device)
+    prog, inp = interp.program_inputs(
+        air, main_lde[::stride], aux_lde[::stride] if air.aux_width else None, sels, publics,
+        randomness, aux_values, periodic, alpha,
+        pp=pp_lde[::stride] if pp_lde is not None else None, next_offset=1 << log_d,
+    )
+    return prog, inp, inv_tile
+
+
+def evaluate_quotient_program(
+    air: Air, domain: LiftedDomain, main_lde, aux_lde, log_d: int, alpha, publics, randomness,
+    aux_values, pp_lde=None,
+):
+    """:func:`evaluate_quotient` through the AIR's recorded constraint
+    program (``miden_tpu``'s ``_evaluate_quotient_interp``): Q1 on the card,
+    the plain twin on the CPU."""
+    prog, inp, inv_tile = quotient_program_inputs(
+        air, domain, main_lde, aux_lde, log_d, alpha, publics, randomness, aux_values, pp_lde
+    )
+    return F.ext_mul_base(interp.run_program(prog, inp), inv_tile)
+
+
+#: log2 of the quotient-domain points the eager evaluator takes at once.
+#: Each block repeats every constraint's launches, so the block is as
+#: large as fits: a stacked family of G constraints holds G × 2 int64 a
+#: point. The eager evaluator takes only the AIRs of :func:`uses_program`'s
+#: "no", whose domains are below 2^21 points: at most two blocks.
+QUOTIENT_BLOCK_LOG = 20
+
+
+def evaluate_quotient_eager(
+    air: Air, domain: LiftedDomain, main_lde, aux_lde, log_d: int, alpha, publics, randomness,
+    aux_values, pp_lde=None,
+):
+    """:func:`evaluate_quotient` with torch ops (the ``_evaluate_quotient_dev``
+    formulation of ``miden_tpu``): every constraint is evaluated over blocks
+    of 2^``QUOTIENT_BLOCK_LOG`` coset points at once."""
+    device = main_lde.device
+    d = 1 << log_d
+    nd = domain.trace_height * d
+    stride = domain.lde_height // nd
+
+    # columns as contiguous rows: (w, nd), and the next-row view rolled by D
+    main_t = main_lde[::stride].T.contiguous()
+    main_next = torch.roll(main_t, -d, dims=1)
+    if aux_lde is not None:
+        aux_t = aux_lde[::stride].T.contiguous()
+        aux_next = torch.roll(aux_t, -d, dims=1)
+    if pp_lde is not None:
+        pp_t = pp_lde[::stride].T.contiguous()
+        pp_next = torch.roll(pp_t, -d, dims=1)
+    sels, periodic, inv_tile = _coset_tables(air, domain, log_d, device)
 
     out = torch.empty((nd, 2), dtype=torch.int64, device=device)
     block = min(nd, 1 << QUOTIENT_BLOCK_LOG)

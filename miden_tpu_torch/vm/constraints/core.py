@@ -696,6 +696,10 @@ class CoreVmAir(Air):
                 sink(f.stack([e for e, _ in items]), f"family/{kind}")
                 self.label_order.extend(label for _, label in items)
 
+    #: the quotient goes through the recorded constraint program
+    #: (stark/interp.py, kernel Q1 on the card), as in miden_tpu
+    prefer_interp = True
+
     def build_aux_trace(self, main, publics, aux_inputs, randomness):
         from .aux_numeric import build_device_aux
         from .buses import core_bus_columns, seed_denominator

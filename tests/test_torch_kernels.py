@@ -2,9 +2,10 @@
 
 K1 (``ntt_col_transform``), K2 (``ntt_transpose_twiddle`` inside the
 four-step decomposition), K3's three entries (``poseidon2_permute``,
-``poseidon2_absorb_rows``, ``poseidon2_compress_rows``) and those of R1
-(RPO-256) and R2 (RPX-256) are compared with
-the plain versions on the same CUDA inputs, and ``MerkleTree`` folds its
+``poseidon2_absorb_rows``, ``poseidon2_compress_rows``), those of R1
+(RPO-256) and R2 (RPX-256), and Q1 (``constraints_eval``, the recorded
+constraint program) are compared with the plain versions on the same CUDA
+inputs, and ``MerkleTree`` folds its
 lower layers on the card; Goldilocks arithmetic is exact, so every
 comparison is exact equality. Every test skips without a card. On the card:
 
@@ -31,7 +32,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture(autouse=True)
 def _card():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (kernels K1-K3, R1 and R2 have no CPU mode)")
+        pytest.skip("needs an NVIDIA GPU (kernels K1-K3, R1, R2 and Q1 have no CPU mode)")
 
 
 def _rand(rng, shape):
@@ -262,3 +263,75 @@ def test_merkle_tree_on_the_card_folds_with_compress_rows():
     assert poseidon2.COMPRESS_KERNEL.launches == before + 2  # 2^11 -> 2^10 -> 2^9 rows
     cpu = MerkleTree(leaves, device="cpu")
     assert tree.root == cpu.root and list(tree.inner_nodes()) == list(cpu.inner_nodes())
+
+
+def _q1_airs():
+    from miden_tpu_torch import bench_airs
+    from miden_tpu_torch.precompile import session
+    from miden_tpu_torch.vm.constraints import CoreVmAir
+    from miden_tpu_torch.vm.constraints.chiplets_air import ChipletsVmAir
+    from miden_tpu_torch.vm.constraints.poseidon2_air import Poseidon2PermutationAir
+
+    keccak = [a for a in session._session_statement((1, 2, 3, 4), 3, 1, 1, 1).multi_air.airs
+              if type(a).__name__ == "KeccakAir"]
+    return {"core": CoreVmAir(), "chiplets": ChipletsVmAir(), "poseidon2": Poseidon2PermutationAir(),
+            "square_lut": bench_airs.SquareLutAir(6), "keccak": keccak[0]}
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("which", ["core", "chiplets", "poseidon2", "square_lut", "keccak"])
+def test_constraint_kernel_matches_plain(which, stride):
+    """Q1 against its plain twin on the same CUDA inputs: a VM AIR, an AIR
+    with preprocessed columns and the session's widest (periodic columns,
+    register ids past 10 bits), reading row-strided LDE views whose next
+    rows wrap around the domain's end."""
+    from miden_tpu_torch.stark import interp
+
+    air = _q1_airs()[which]
+    nd, d = 1 << 10, 8
+    rng = np.random.default_rng(len(which) * 10 + stride)
+
+    def view(k):
+        return _rand(rng, (nd * stride, k))[::stride] if k else None
+
+    inputs = (
+        air, view(air.width), view(2 * air.aux_width), tuple(_rand(rng, (nd,)) for _ in range(3)),
+        _rand(rng, (max(40, air.num_public_values),)), _rand(rng, (air.num_randomness, 2)),
+        _rand(rng, (air.num_aux_values, 2)), [_rand(rng, (nd,)) for _ in air.periodic_columns],
+        _rand(rng, (2,)),
+    )
+    before = interp.Q1_KERNEL.launches
+    got = interp.evaluate_folded_constraints(*inputs, pp=view(air.preprocessed_width), next_offset=d)
+    torch.cuda.synchronize()
+    assert interp.Q1_KERNEL.launches == before + 1
+    real = interp.run_program
+    try:
+        interp.run_program = interp.run_program_plain
+        want = interp.evaluate_folded_constraints(*inputs, pp=view(air.preprocessed_width), next_offset=d)
+    finally:
+        interp.run_program = real
+    assert interp.Q1_KERNEL.launches == before + 1
+    assert _equal(got, want)
+
+
+def test_constraint_kernel_refuses_what_it_does_not_take():
+    from miden_tpu_torch.stark import interp
+
+    air = _q1_airs()["square_lut"]
+    prog = interp.get_program(air, 1, 0, 0)
+    nd = 64
+    ok = interp.ProgramInputs(
+        sources=(torch.zeros((nd, 1), dtype=torch.int64, device="cuda"),
+                 torch.zeros((nd, 1), dtype=torch.int64, device="cuda"), None,
+                 torch.zeros((3, nd), dtype=torch.int64, device="cuda")),
+        scal=torch.zeros((prog.n_fixed - prog.n_vec,), dtype=torch.int64, device="cuda"), nd=nd, next_offset=1,
+    )
+    assert interp.run_program_kernel(prog, ok).shape == (nd, 2)
+    with pytest.raises(ValueError):  # not a power of two
+        interp.run_program_kernel(prog, interp.ProgramInputs(ok.sources, ok.scal, 48, 1))
+    with pytest.raises(ValueError):  # a source of another height
+        interp.run_program_kernel(prog, interp.ProgramInputs(
+            (ok.sources[0][:32], *ok.sources[1:]), ok.scal, nd, 1))
+    with pytest.raises(ValueError):  # a CPU source
+        interp.run_program_kernel(prog, interp.ProgramInputs(
+            (ok.sources[0].cpu(), *ok.sources[1:]), ok.scal, nd, 1))

@@ -117,12 +117,14 @@ def test_proof_bytes_equal_miden_tpu_at_miden_params():
 
 @pytest.mark.parametrize("air_index", [0, 1, 2])
 def test_quotient_in_blocks_equals_one_block(monkeypatch, air_index):
-    # the VM core's 2^21-point quotient domain is evaluated in blocks on the
-    # card; the blocks must give the values of one pass over the domain
+    # the VM AIRs' quotient goes through the recorded constraint program,
+    # whose plain twin (the CPU side of Q1) walks the points in blocks, as
+    # the eager evaluator does below 2^21 points; the blocks must give the
+    # values of one pass over the domain
     import numpy as np
 
     from miden_tpu_torch.field import goldilocks as F
-    from miden_tpu_torch.stark import prover
+    from miden_tpu_torch.stark import interp, prover
     from miden_tpu_torch.stark.domains import LiftedDomain
     from miden_tpu_torch.vm.constraints import CoreVmAir
     from miden_tpu_torch.vm.constraints.chiplets_air import ChipletsVmAir
@@ -140,7 +142,10 @@ def test_quotient_in_blocks_equals_one_block(monkeypatch, air_index):
         rand(2), rand(40), rand(air.num_randomness, 2), rand(air.num_aux_values, 2),
     )
     whole = prover.evaluate_quotient(*args)
+    prog = interp.get_program(air, 40, air.num_randomness, air.num_aux_values)
     monkeypatch.setattr(prover, "QUOTIENT_BLOCK_LOG", 5)  # 4 blocks of 32 points
+    monkeypatch.setattr(interp, "PLAIN_BLOCK_ELEMS", 32 * (prog.frame_size + prog.n_vec))
+    assert interp.plain_block_points(prog, dom.lde_height) == 32
     assert torch.equal(prover.evaluate_quotient(*args), whole)
 
 
