@@ -136,6 +136,11 @@ Phases, one line each (plus details):
    the host more), the JSON line of kernels, the card's name and power
    limit, and the result line ``{"ok": true, "device": {...}}`` last.
 
+The CPU halves of the card == CPU checks (phases 3, 5a, 5c, 5d, 10a, 10d,
+11d) are made in one spawned process of their own (CpuHalves, CPU_THREADS
+torch threads), queued right after the build, while the card works; each
+phase waits for its bytes where it compares them.
+
 Any failure raises and the script exits non-zero without a result line. It
 needs one CUDA device, and the repository around it.
 """
@@ -509,14 +514,12 @@ def rescue_phase(torch, kernels, dev: str) -> dict:
     for hash_name, kind, traced in (("rpo256", "vm_rpo", True), ("rpx256", "vm_rpx", False)):
         params = dataclasses.replace(MIDEN_PARAMS, hash_name=hash_name)
         _, on_card = prove_program(small, params=params, device=dev)
-        t0 = time.perf_counter()
-        _, on_cpu = prove_program(small, params=params, device="cpu")
-        cpu_s = time.perf_counter() - t0
-        if on_card.to_bytes() != on_cpu.to_bytes():
+        cpu_bytes, cpu_s = CPU_HALVES.get(f"vm_fib_{hash_name}")
+        if on_card.to_bytes() != cpu_bytes:
             raise AssertionError(f"{hash_name}: VM proofs from the card and the CPU differ")
         verify_program(on_card, params=params)
         log(f"  {hash_name} fib repeat.{VM_SMALL_REPS}: card == CPU ({len(on_card.to_bytes())} bytes), "
-            f"verified; CPU prove {cpu_s:.3f} s")
+            f"verified; CPU prove {cpu_s:.3f} s (in the CPU process)")
         warm = ""
         if traced:
             t0 = time.perf_counter()
@@ -563,15 +566,16 @@ def preprocessed_phase(torch, dev: str) -> None:
     from miden_tpu_torch.transcript.challenger import DuplexChallenger
 
     for log_n, devices in ((PP_SMALL_LOG, (dev, "cpu")), (PP_FULL_LOG, (dev,))):
-        made = []
-        for d in devices:
-            st, tr = square_lut_statement(log_n, device=d)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            pp = build_preprocessed(st, MIDEN_PARAMS, device=d)
-            out = prove(MIDEN_PARAMS, st, tr, DuplexChallenger(SEED), preprocessed=pp, device=d)
-            torch.cuda.synchronize()
-            made.append((proof_to_bytes(out.proof), pp.commitment(), time.perf_counter() - t0))
+        st, tr = square_lut_statement(log_n, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pp = build_preprocessed(st, MIDEN_PARAMS, device=dev)
+        out = prove(MIDEN_PARAMS, st, tr, DuplexChallenger(SEED), preprocessed=pp, device=dev)
+        torch.cuda.synchronize()
+        made = [(proof_to_bytes(out.proof), pp.commitment(), time.perf_counter() - t0)]
+        if "cpu" in devices:  # made in the CPU process
+            (blob, root), secs = CPU_HALVES.get("preprocessed")
+            made.append((blob, root, secs))
         if len({(blob, root) for blob, root, _ in made}) != 1:
             raise AssertionError(f"preprocessed statement 2^{log_n}: card and CPU proofs differ")
         digest = verify(MIDEN_PARAMS, st, out.proof, DuplexChallenger(SEED),
@@ -834,16 +838,15 @@ def stdlib_phase(torch, kernels, dev: str) -> tuple:
     small = assemble_with_stdlib(B.U64_PROGRAM)
     out, on_card = prove_program(small, params=MIDEN_PARAMS, event_handlers=handlers, device=dev)
     drain_program_checks()
-    t0 = time.perf_counter()
-    _, on_cpu = prove_program(small, params=MIDEN_PARAMS, event_handlers=handlers, device="cpu")
-    cpu_s = time.perf_counter() - t0
-    if on_card.to_bytes() != on_cpu.to_bytes():
+    cpu_bytes, cpu_s = CPU_HALVES.get("u64")
+    if on_card.to_bytes() != cpu_bytes:
         raise AssertionError("stdlib-small: the card's and the CPU's proof bytes differ")
     if [int(v) for v in out.stack[:2]] != B.u64_program_top():
         raise AssertionError(f"stdlib-small left {out.stack[:2]}, the host's u64 is {B.u64_program_top()}")
     verify_program(on_card, params=MIDEN_PARAMS)
     log_phase(f"phase 10a stdlib-small (u64 program) MIDEN_PARAMS: card == CPU ({len(on_card.to_bytes())} bytes), "
-              f"log heights {on_card.stark.log_heights}, u64 on top == host, verified; CPU prove {cpu_s:.3f} s")
+              f"log heights {on_card.stark.log_heights}, u64 on top == host, verified; CPU prove {cpu_s:.3f} s "
+              f"(in the CPU process)")
 
     # -- (b) stdlib-blake3-18 --------------------------------------------------
     prog, inputs = assemble_with_stdlib(B.blake3_chain_program(B.BLAKE3_REPS)), B.blake3_inputs()
@@ -911,23 +914,20 @@ def stdlib_phase(torch, kernels, dev: str) -> tuple:
               f"in the VM, sha256 / poseidon2 / aead outputs == hashlib, poseidon2_host, AeadPoseidon2; verified")
 
     # -- (d) MerkleTree on the card ----------------------------------------------
-    leaves = [tuple(int(v) for v in row) for row in
-              np.random.default_rng(10).integers(0, 2**63, size=(1 << 16, 4), dtype=np.uint64)]
+    leaves = _merkle_leaves()
     zero_counts(kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     tree = MerkleTree(leaves)
     card_s = time.perf_counter() - t0
     compress = {name: kern.launches for name, (kern, _, _) in kernels.items() if kern.launches}
-    t0 = time.perf_counter()
-    cpu_tree = MerkleTree(leaves, device="cpu")
-    cpu_s = time.perf_counter() - t0
-    if list(tree.inner_nodes()) != list(cpu_tree.inner_nodes()) or tree.root != cpu_tree.root:
+    (cpu_root, cpu_nodes), cpu_s = CPU_HALVES.get("merkle")
+    if list(tree.inner_nodes()) != cpu_nodes or tree.root != cpu_root:
         raise AssertionError("MerkleTree: the card's layers differ from the CPU's")
     if set(compress) != {"poseidon2_compress_rows"}:
         raise AssertionError(f"MerkleTree on the card launched {compress}, not K3 compress_rows alone")
-    log_phase(f"phase 10d MerkleTree over 2^16 leaves: card {card_s:.3f} s ({compress}), CPU {cpu_s:.3f} s, "
-              f"root and every layer equal")
+    log_phase(f"phase 10d MerkleTree over 2^16 leaves: card {card_s:.3f} s ({compress}), CPU {cpu_s:.3f} s "
+              f"(in the CPU process), root and every layer equal")
     return launches, shapes
 
 
@@ -1040,16 +1040,14 @@ def recursion_phase(torch, kernels, dev: str, fib_proof) -> tuple:
     executed = execute_both(small_st, small_fx, TEST_PARAMS)
     fri = assemble_with_stdlib(R.fri_query_program(small_fx))
     _, on_card = prove_program(fri, params=TEST_PARAMS, event_handlers=handlers, device=dev)
-    t0 = time.perf_counter()
-    _, on_cpu = prove_program(fri, params=TEST_PARAMS, event_handlers=handlers, device="cpu")
-    cpu_s = time.perf_counter() - t0
+    cpu_bytes, cpu_s = CPU_HALVES.get("fri_query")
     drain_program_checks()
-    if on_card.to_bytes() != on_cpu.to_bytes():
+    if on_card.to_bytes() != cpu_bytes:
         raise AssertionError("fri_query_program: the card's and the CPU's proof bytes differ")
     verify_program(on_card, params=TEST_PARAMS, partial=True)
     log_phase(f"phase 11d fib repeat.40 at TEST_PARAMS: {executed}; fri_query_program card == CPU "
               f"({len(on_card.to_bytes())} bytes, log heights {on_card.stark.log_heights}, CPU prove "
-              f"{cpu_s:.3f} s), verified")
+              f"{cpu_s:.3f} s in the CPU process), verified")
     return launches, shapes
 
 
@@ -1240,9 +1238,12 @@ class ProgramChecks:
             if eager:
                 eager_equal = torch.equal(prover.evaluate_quotient_program(*args),
                                           prover.evaluate_quotient_eager(*args))
+            launch = interp.q1_plan(prog, nd).describe()
             self.held[key] = {"err": err, "points": points, "nd": nd, "ms": ms, "plain_ms": plain_ms,
                               "bound_ms": b_ms, "bound_by": b_by, "eager_equal": eager_equal,
-                              "instructions": prog.n_instr, "frame": prog.frame_size}
+                              "instructions": prog.n_instr, "frame": prog.frame_size,
+                              "scheduled_frame": prog.schedule(interp.Q1_DEFAULT.on_chip).frame_size,
+                              "launch": launch}
             del got, prog, inp, args
             torch.cuda.empty_cache()
             log(f"  {Q1} at {key}: == plain twin over {points} of {nd} points, max |diff| {err}"
@@ -1250,7 +1251,9 @@ class ProgramChecks:
                    f"; the quotient through Q1 {'==' if eager_equal else '!='} the eager evaluator's "
                    f"over all {nd} points")
                 + f"; {ms:.4f} ms/launch (plain {'%.1f' % plain_ms if plain_ms is not None else 'not timed'}"
-                f" ms, estimated {1e3 * est_s:.1f}; bound {b_ms:.4f} ms by {b_by}) "
+                f" ms, estimated {1e3 * est_s:.1f}; bound {b_ms:.4f} ms by {b_by}); frame "
+                f"{self.held[key]['frame']} slots recorded, {self.held[key]['scheduled_frame']} scheduled; "
+                f"launch {launch} "
                 f"({time.perf_counter() - t0:.1f} s)")
             if err or eager_equal is False:
                 raise AssertionError(f"{Q1} at {key}: disagrees with its plain twin or the eager evaluator")
@@ -1277,6 +1280,7 @@ class ProgramChecks:
             "max_abs_err": max(r["err"] for r in self.held.values()), "ms": round(rec["ms"], 6),
             "plain_ms": round(rec["plain_ms"], 6), "bound_ms": round(rec["bound_ms"], 6),
             "bound_by": rec["bound_by"], "library_ms": None, "cell": "vm", "shape": list(key),
+            "launch": rec["launch"], "frame": rec["frame"], "scheduled_frame": rec["scheduled_frame"],
             "launches_at_shape": vm_keys[key],
             "per_proof": {kind: {"launches": proofs[kind][0][Q1], "ms": round(per_proof[kind], 6)}
                           for kind in proofs},
@@ -1424,6 +1428,128 @@ def kernel_rows(torch, kernels, proofs, errs, rand) -> list:
     return rows
 
 
+#: torch threads of the process that makes the CPU halves of the card ==
+#: CPU checks (CpuHalves): it runs beside the card's process and leaves it
+#: the host's other cores for its launches
+CPU_THREADS = 4
+
+
+def _merkle_leaves() -> list:
+    return [tuple(int(v) for v in row) for row in
+            np.random.default_rng(10).integers(0, 2**63, size=(1 << 16, 4), dtype=np.uint64)]
+
+
+def _cpu_shaped() -> bytes:
+    from miden_tpu_torch.bench_airs import miden_shaped_statement
+    from miden_tpu_torch.stark import MIDEN_PARAMS, prove
+    from miden_tpu_torch.stark.proof_io import proof_to_bytes
+    from miden_tpu_torch.transcript.challenger import DuplexChallenger
+
+    st, tr = miden_shaped_statement(SMALL_LOG, device="cpu")
+    return proof_to_bytes(prove(MIDEN_PARAMS, st, tr, DuplexChallenger(SEED), device="cpu").proof)
+
+
+def _cpu_vm_fib(hash_name: str) -> bytes:
+    from miden_tpu_torch.stark import MIDEN_PARAMS
+    from miden_tpu_torch.vm import assemble
+    from miden_tpu_torch.vm.prove import prove_program
+
+    params = dataclasses.replace(MIDEN_PARAMS, hash_name=hash_name)
+    return prove_program(assemble(fib_program(VM_SMALL_REPS)), params=params, device="cpu")[1].to_bytes()
+
+
+def _cpu_preprocessed() -> tuple:
+    from miden_tpu_torch.bench_airs import square_lut_statement
+    from miden_tpu_torch.stark import MIDEN_PARAMS, build_preprocessed, prove
+    from miden_tpu_torch.stark.proof_io import proof_to_bytes
+    from miden_tpu_torch.transcript.challenger import DuplexChallenger
+
+    st, tr = square_lut_statement(PP_SMALL_LOG, device="cpu")
+    pp = build_preprocessed(st, MIDEN_PARAMS, device="cpu")
+    out = prove(MIDEN_PARAMS, st, tr, DuplexChallenger(SEED), preprocessed=pp, device="cpu")
+    return proof_to_bytes(out.proof), pp.commitment()
+
+
+def _cpu_u64() -> bytes:
+    from miden_tpu_torch import bench_stdlib as B
+    from miden_tpu_torch.stark import MIDEN_PARAMS
+    from miden_tpu_torch.stdlib import assemble_with_stdlib, stdlib_event_handlers
+    from miden_tpu_torch.vm.prove import prove_program
+
+    return prove_program(assemble_with_stdlib(B.U64_PROGRAM), params=MIDEN_PARAMS,
+                         event_handlers=stdlib_event_handlers(), device="cpu")[1].to_bytes()
+
+
+def _cpu_merkle() -> tuple:
+    from miden_tpu_torch.merkle.tree import MerkleTree
+
+    tree = MerkleTree(_merkle_leaves(), device="cpu")
+    return tree.root, list(tree.inner_nodes())
+
+
+def _cpu_fri_query() -> bytes:
+    """fri_query_program made from the CPU's own fib repeat.40 proof at
+    TEST_PARAMS, proved on the CPU."""
+    from miden_tpu_torch import bench_recursion as R
+    from miden_tpu_torch.stark import TEST_PARAMS
+    from miden_tpu_torch.stdlib import assemble_with_stdlib, stdlib_event_handlers
+    from miden_tpu_torch.vm import assemble
+    from miden_tpu_torch.vm.prove import prove_program
+
+    _, small_proof = prove_program(assemble(fib_program(40)), params=TEST_PARAMS, device="cpu")
+    _, fx = R.vm_recursion_fixture(small_proof, TEST_PARAMS)
+    fri = assemble_with_stdlib(R.fri_query_program(fx))
+    return prove_program(fri, params=TEST_PARAMS, event_handlers=stdlib_event_handlers(), device="cpu")[1].to_bytes()
+
+
+#: the CPU halves, in the order the phases need them: job -> (function, arguments)
+CPU_JOBS = {
+    "shaped": (_cpu_shaped, ()),  # phase 3
+    "vm_fib": (_cpu_vm_fib, ("poseidon2",)),  # phase 5a (and 9b, 12c)
+    "vm_fib_rpo256": (_cpu_vm_fib, ("rpo256",)),  # phase 5c
+    "vm_fib_rpx256": (_cpu_vm_fib, ("rpx256",)),
+    "preprocessed": (_cpu_preprocessed, ()),  # phase 5d
+    "u64": (_cpu_u64, ()),  # phase 10a
+    "merkle": (_cpu_merkle, ()),  # phase 10d
+    "fri_query": (_cpu_fri_query, ()),  # phase 11d
+}
+
+
+def cpu_job(job: str) -> tuple:
+    """One CPU half, run in the CPU process: (its result, seconds)."""
+    import torch
+
+    torch.set_num_threads(CPU_THREADS)
+    fn, args = CPU_JOBS[job]
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t0
+
+
+class CpuHalves:
+    """The CPU halves of the card == CPU checks, made in one spawned process
+    (CPU_THREADS torch threads) while the card works: every job of CPU_JOBS
+    is queued at the start; :meth:`get` waits for one."""
+
+    def __init__(self):
+        import multiprocessing
+
+        self.pool = multiprocessing.get_context("spawn").Pool(1)
+        self.jobs = {job: self.pool.apply_async(cpu_job, (job,)) for job in CPU_JOBS}
+
+    def get(self, job: str) -> tuple:
+        """(result, seconds it took in the CPU process)."""
+        return self.jobs[job].get()
+
+    def close(self) -> None:
+        self.pool.terminate()
+        self.pool.join()
+
+
+#: the CPU process of the run (started in main after the build)
+CPU_HALVES = None
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -1431,19 +1557,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from miden_tpu_torch.bench_airs import miden_shaped_statement
-    from miden_tpu_torch.field import gl
-    from miden_tpu_torch.hash import poseidon2, rescue, rescue_host
-    from miden_tpu_torch.ntt import ntt
-    from miden_tpu_torch.stark import MIDEN_PARAMS, prove, verify
-    from miden_tpu_torch.stark.proof_io import proof_to_bytes
-    from miden_tpu_torch.transcript.challenger import DuplexChallenger
-    from miden_tpu_torch.utils import cuda
-    from miden_tpu_torch.utils.tracing import Recorder
     from miden_tpu_torch import native
-    from miden_tpu_torch.vm import assemble, native_trace
-    from miden_tpu_torch.vm.prove import prove_program, verify_program
-    from miden_tpu_torch.vm.trace import execute_and_trace
+    from miden_tpu_torch.utils import cuda
 
     card = nvidia_smi("name,power.limit")
     kernels = kernel_table()
@@ -1463,7 +1578,29 @@ def main() -> int:
     log_phase(f"phase 1 build: {secs:.3f} s for csrc/ntt.cu, csrc/poseidon2.cu, csrc/rescue.cu and "
               f"csrc/constraints.cu, "
         f"{time.perf_counter() - t0:.3f} s for native/trace_gen.c ({native.LIBRARY.name})")
+
+    global CPU_HALVES
+    CPU_HALVES = CpuHalves()
+    try:
+        return card_phases(torch, kernels, card)
+    finally:
+        CPU_HALVES.close()
+
+
+def card_phases(torch, kernels, card: str) -> int:
+    """Phases 2-12 and the result lines, with the CPU process running."""
+    from miden_tpu_torch.bench_airs import miden_shaped_statement
     from miden_tpu_torch.bench_session import _launch_us
+    from miden_tpu_torch.field import gl
+    from miden_tpu_torch.hash import poseidon2, rescue, rescue_host
+    from miden_tpu_torch.ntt import ntt
+    from miden_tpu_torch.stark import MIDEN_PARAMS, prove, verify
+    from miden_tpu_torch.stark.proof_io import proof_to_bytes
+    from miden_tpu_torch.transcript.challenger import DuplexChallenger
+    from miden_tpu_torch.utils.tracing import Recorder
+    from miden_tpu_torch.vm import assemble, native_trace
+    from miden_tpu_torch.vm.prove import prove_program, verify_program
+    from miden_tpu_torch.vm.trace import execute_and_trace
 
     log(f"  host launch cost: {_launch_us(torch):.2f} us a one-element add")
     global PROGRAM_CHECKS
@@ -1563,17 +1700,14 @@ def main() -> int:
     # -- 3. small proof, card vs CPU ----------------------------------------
     st, tr = miden_shaped_statement(SMALL_LOG, device=dev)
     out_gpu = prove(MIDEN_PARAMS, st, tr, DuplexChallenger(SEED), device=dev)
-    st_c, tr_c = miden_shaped_statement(SMALL_LOG, device="cpu")
-    t0 = time.perf_counter()
-    out_cpu = prove(MIDEN_PARAMS, st_c, tr_c, DuplexChallenger(SEED), device="cpu")
-    cpu_s = time.perf_counter() - t0
-    b_gpu, b_cpu = proof_to_bytes(out_gpu.proof), proof_to_bytes(out_cpu.proof)
+    b_cpu, cpu_s = CPU_HALVES.get("shaped")
+    b_gpu = proof_to_bytes(out_gpu.proof)
     if b_gpu != b_cpu:
         raise AssertionError("card and CPU proofs differ")
     if verify(MIDEN_PARAMS, st, out_gpu.proof, DuplexChallenger(SEED)) != out_gpu.digest:
         raise AssertionError("verifier digest differs from the prover's")
     log_phase(f"phase 3 small proof 2^{SMALL_LOG} MIDEN_PARAMS: card == CPU ({len(b_gpu)} bytes), "
-        f"verified; CPU prove {cpu_s:.3f} s")
+        f"verified; CPU prove {cpu_s:.3f} s (in the CPU process)")
 
     # -- 4. full-size proof -------------------------------------------------
     shapes = {name: {} for name in kernels}  # shaped-18 proof: shape -> launches
@@ -1623,17 +1757,15 @@ def main() -> int:
     small = assemble(fib_program(VM_SMALL_REPS))
     out_gpu, vm_gpu = prove_program(small, params=MIDEN_PARAMS, device=dev)
     drain_program_checks()
-    t0 = time.perf_counter()
-    _, vm_cpu = prove_program(small, params=MIDEN_PARAMS, device="cpu")
-    cpu_s = time.perf_counter() - t0
-    if vm_gpu.to_bytes() != vm_cpu.to_bytes():
+    small_cpu_bytes, cpu_s = CPU_HALVES.get("vm_fib")
+    if vm_gpu.to_bytes() != small_cpu_bytes:
         raise AssertionError("VM proofs from the card and the CPU differ")
     verify_program(vm_gpu, params=MIDEN_PARAMS)
     if out_gpu.stack[0] != fib_top(VM_SMALL_REPS, gl.P):
         raise AssertionError(f"small VM program left {out_gpu.stack[0]} on top of the stack")
     log_phase(f"phase 5a VM fib repeat.{VM_SMALL_REPS} MIDEN_PARAMS: card == CPU "
         f"({len(vm_gpu.to_bytes())} bytes), log heights {vm_gpu.stark.log_heights}, verified; "
-        f"CPU prove {cpu_s:.3f} s")
+        f"CPU prove {cpu_s:.3f} s (in the CPU process)")
 
     full = assemble(fib_program(VM_FULL_REPS))
     PROGRAM_CHECKS.eager = True  # the first vm-fib-18 proof: Q1 == the eager evaluator too
@@ -1712,7 +1844,7 @@ def main() -> int:
     recursion_proof = recursion_phase(torch, kernels, dev, vm_proof)
 
     # -- 12. multi-device: NCCL at world size 1, gloo ranks sharing the card -----
-    dist_proof = dist_phase(torch, kernels, full, vm_bytes, med, vm_peak, vm_cpu.to_bytes())
+    dist_proof = dist_phase(torch, kernels, full, vm_bytes, med, vm_peak, small_cpu_bytes)
 
     # -- 7. kernels vs plain, and timings, at the proofs' shapes --------------
     rows = kernel_rows(torch, kernels, {
@@ -1723,7 +1855,7 @@ def main() -> int:
     log_phase(f"phase 7 kernels vs plain and timings at the proofs' shapes on {card}")
 
     # -- 9. the entry surfaces: CLI, wire forms, pause/resume, byte hashes ---
-    entry_phase(torch, kernels, dev, vm_launches, vm_bytes, vm_cpu.to_bytes())
+    entry_phase(torch, kernels, dev, vm_launches, vm_bytes, small_cpu_bytes)
 
     # -- 8. device-busy share, then the result lines ---------------------------
     # the profiler runs last: after it the host's cost per launch stays up

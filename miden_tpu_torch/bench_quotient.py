@@ -1,6 +1,6 @@
 """The quotient on the card: Q1 against the eager evaluator, per VM AIR.
 
-    python3 -m miden_tpu_torch.bench_quotient [--reps 5]
+    python3 -m miden_tpu_torch.bench_quotient [--reps 5] [--parent DIR] [--sweep]
 
 Proves bench.py's real-program row (the fib program with repeat.84000: core
 2^18 rows, a 2^21-point quotient domain; vm-fib-18) at MIDEN_PARAMS once,
@@ -13,19 +13,31 @@ and the whole ``evaluate_quotient`` of each), the extra device memory each
 call takes at its peak, and Q1's bound. Then two timed ``prove_program``
 calls with their peak memory and one traced call's "evaluate constraints"
 span per AIR. Ends with one JSON line of the numbers. Needs one CUDA device.
+
+``--parent DIR`` (the root of an earlier checkout, as for ``bench_kernels
+--parent``) also runs that checkout's Q1 on the same inputs, in turns with
+this one's (earlier, this, this, earlier), holds the two outputs equal and
+prints both times, the extra device memory of each launch and this Q1's
+launch setting. ``--sweep`` times this Q1 under every setting of
+:data:`SWEEP` (points a thread, threads a block, on-chip slots, off-chip
+budget) on each AIR's inputs, each output held equal to the default's.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import time
 
 import torch
 
-from .bench_kernels import HBM_BYTES_PER_S, INT32_MULS_PER_MUL, int32_mul_rate, time_ms
+from pathlib import Path
+
+from .bench_kernels import HBM_BYTES_PER_S, INT32_MULS_PER_MUL, Tree, in_turns, int32_mul_rate, time_ms
 from .stark import MIDEN_PARAMS, interp, prover
+from .utils import cuda
 from .utils.tracing import Recorder
 from .vm import assemble
 from .vm.prove import prove_program
@@ -55,6 +67,50 @@ def bound_ms(prog, inp, mul_rate: float) -> tuple:
     n_bytes, ops = program_work(prog, inp)
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / mul_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+#: Q1 settings ``--sweep`` times: points a thread x threads a block x on-chip
+#: slots, the off-chip remainder uncut (1 GiB); then the five fastest again
+#: with the remainder held to 32 MiB, well inside the 50 MB L2
+SWEEP = [interp.Q1Setting(k, b, on, 1 << 30) for k in (1, 2, 4) for b in (32, 64, 128, 256)
+         for on in (0, 8, 16, 32, 48, 96)]
+
+
+def sweep(prog, inp, reps: int) -> list:
+    """[(setting, ms or None where no block of it fits an SM, plan)] of Q1
+    over ``inp`` under each setting of SWEEP and, for the five fastest,
+    again with the off-chip remainder held to 32 MiB; every output equal to
+    the default setting's."""
+    want = interp.run_program_kernel(prog, inp)
+    out = []
+
+    def run(setting):
+        try:
+            plan = interp.q1_plan(prog, inp.nd, setting)
+        except cuda.KernelError:
+            out.append((setting, None, None))
+            return
+        if not torch.equal(interp.run_program_kernel(prog, inp, setting), want):
+            raise AssertionError(f"Q1 under {setting} disagrees with the default setting")
+        out.append((setting, time_ms(lambda: interp.run_program_kernel(prog, inp, setting), reps), plan))
+
+    for setting in SWEEP:
+        run(setting)
+    best = sorted((r for r in out if r[1] is not None), key=lambda r: r[1])[:5]
+    for setting, _, _ in best:
+        run(dataclasses.replace(setting, spill_bytes=32 << 20))
+    return out
+
+
+def parent_q1(tree: Tree, prog, inp):
+    """The earlier checkout's Q1 on this checkout's inputs, as a call: its
+    own program for the same AIR class and counts, its own ProgramInputs."""
+    air = prog.air
+    their_air = getattr(tree.mod(type(air).__module__.split(".", 1)[1]), type(air).__name__)()
+    their = tree.mod("stark.interp")
+    their_prog = their.get_program(their_air, prog.n_pub, prog.n_rand, prog.n_auxv)
+    their_inp = their.ProgramInputs(sources=inp.sources, scal=inp.scal, nd=inp.nd, next_offset=inp.next_offset)
+    return lambda: their.run_program_kernel(their_prog, their_inp)
 
 
 def capture_quotient_inputs(fn) -> list:
@@ -90,6 +146,8 @@ def extra_peak_gib(fn) -> float:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--parent", type=Path, help="root of an earlier checkout: A/B of its Q1 against this one")
+    ap.add_argument("--sweep", action="store_true", help="time this Q1 under every setting of SWEEP")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_quotient: no CUDA device")
@@ -106,12 +164,15 @@ def main(argv=None) -> int:
 
     prove()  # builds the kernels, warms the allocator
     calls = capture_quotient_inputs(prove)
-    rows = []
+    parent = Tree(args.parent.resolve(), "parent_miden_tpu_torch") if args.parent else None
+    rows, sweeps = [], {}
     for call in calls:
         air, domain, log_d = call[0], call[1], call[4]
         name, nd = type(air).__name__, domain.trace_height << log_d
         prog, inp, _ = prover.quotient_program_inputs(*call)
-        q1_ms = time_ms(lambda: interp.run_program_kernel(prog, inp), args.reps)
+        plan = interp.q1_plan(prog, nd)
+        q1 = lambda: interp.run_program_kernel(prog, inp)  # noqa: E731
+        q1_ms = time_ms(q1, args.reps)
         prog_ms = time_ms(lambda: prover.evaluate_quotient_program(*call), args.reps)
         eager_ms = time_ms(lambda: prover.evaluate_quotient_eager(*call), 2)
         q1_gib = extra_peak_gib(lambda: prover.evaluate_quotient_program(*call))
@@ -120,16 +181,38 @@ def main(argv=None) -> int:
             raise AssertionError(f"{name}: Q1 and the eager evaluator disagree")
         b_ms, b_by = bound_ms(prog, inp, mul_rate)
         row = {"air": name, "points": nd, "instructions": prog.n_instr, "frame": prog.frame_size,
-               "threads": interp.q1_threads(prog, nd), "q1_ms": round(q1_ms, 4),
+               "scheduled_instructions": plan.sched.n_instr, "scheduled_frame": plan.sched.frame_size,
+               "schedule_per_point": {k: getattr(plan.sched, k) for k in (
+                   "stores", "frame_reads", "prev_reads", "on_chip_accesses", "input_reads")},
+               "launch": plan.describe(), "q1_ms": round(q1_ms, 4),
                "program_ms": round(prog_ms, 4), "eager_ms": round(eager_ms, 4),
                "q1_extra_gib": round(q1_gib, 3), "eager_extra_gib": round(eager_gib, 3),
                "bound_ms": round(b_ms, 4), "bound_by": b_by}
+        log(f"{name} at {nd} points ({prog.n_instr} instructions, {prog.frame_size} frame slots; scheduled "
+            f"{plan.sched.n_instr} and {plan.sched.frame_size}; launch {plan.describe()}): Q1 {q1_ms:.4f} ms "
+            f"(bound {b_ms:.4f} ms by {b_by}, {100 * b_ms / q1_ms:.1f} %), evaluate_quotient through Q1 "
+            f"{prog_ms:.4f} ms, eager {eager_ms:.4f} ms; extra peak {q1_gib:.3f} GiB through Q1, "
+            f"{eager_gib:.3f} GiB eager; outputs equal")
+        if parent is not None:
+            old = parent_q1(parent, prog, inp)
+            if not torch.equal(old(), q1()):
+                raise AssertionError(f"{name}: the parent's Q1 and this Q1 disagree")
+            old_ms, new_ms = in_turns(old, q1, args.reps)
+            old_gib, new_gib = extra_peak_gib(old), extra_peak_gib(q1)
+            row["parent"] = {"q1_ms": round(old_ms, 4), "this_q1_ms": round(new_ms, 4),
+                             "q1_extra_gib": round(old_gib, 4), "this_q1_extra_gib": round(new_gib, 4)}
+            log(f"  A/B in turns: parent Q1 {old_ms:.4f} ms ({100 * b_ms / old_ms:.1f} % of bound), this Q1 "
+                f"{new_ms:.4f} ms ({100 * b_ms / new_ms:.1f} %), {old_ms / new_ms:.2f}x; extra peak of one launch "
+                f"{old_gib:.4f} / {new_gib:.4f} GiB; outputs equal")
+            del old  # it holds the captured LDEs
+        if args.sweep:
+            sweeps[name] = []
+            for setting, ms, p in sweep(prog, inp, args.reps):
+                sweeps[name].append({"setting": dataclasses.asdict(setting), "ms": ms and round(ms, 4),
+                                     "launch": p and p.describe()})
+                log(f"  sweep {setting}: " + (f"{ms:.4f} ms, {p.describe()}" if ms else "no block fits an SM"))
         rows.append(row)
-        log(f"{name} at {nd} points ({prog.n_instr} instructions, {prog.frame_size} frame slots, "
-            f"{row['threads']} threads): Q1 {q1_ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}), "
-            f"evaluate_quotient through Q1 {prog_ms:.4f} ms, eager {eager_ms:.4f} ms; extra peak "
-            f"{q1_gib:.3f} GiB through Q1, {eager_gib:.3f} GiB eager; outputs equal")
-    del calls, call, prog, inp  # the captured LDEs: the proofs below start without them
+    del calls, call, prog, inp, q1  # the captured LDEs: the proofs below start without them
 
     times, peaks = [], []
     for _ in range(2):
@@ -148,7 +231,7 @@ def main(argv=None) -> int:
     log(f"vm-fib-18 prove_program {', '.join(f'{t:.4f}' for t in times)} s, peak "
         f"{', '.join(f'{p:.3f}' for p in peaks)} GiB; evaluate constraints (traced) "
         f"{rec.totals['evaluate constraints'][0]:.4f} s: {spans}")
-    log(json.dumps({"card": card, "airs": rows, "prove_s": [round(t, 4) for t in times],
+    log(json.dumps({"card": card, "airs": rows, "sweep": sweeps, "prove_s": [round(t, 4) for t in times],
                     "peak_gib": [round(p, 3) for p in peaks], "evaluate_constraints_s": spans}))
     return 0
 

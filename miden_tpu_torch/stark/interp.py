@@ -13,9 +13,11 @@ Fiat–Shamir challenger (``vm/ace_registry.py``).
 that reuses freed frame slots), with the input layout and allocator of
 ``miden_tpu.stark.interp`` so that its code is equal instruction for
 instruction. :func:`evaluate_folded_constraints` runs it over a quotient
-coset: on CUDA tensors as kernel Q1 (``csrc/constraints.cu``), on CPU
-tensors as the plain twin :func:`run_program_plain`, a Python loop over the
-instructions. The prover sends the VM AIRs (``prefer_interp``) and every
+coset: on CUDA tensors as kernel Q1 (``csrc/constraints.cu``), which runs
+the program's :class:`Schedule` (:func:`make_schedule`: the same
+instructions reordered, its frame mostly in shared memory), on CPU tensors
+as the plain twin :func:`run_program_plain`, a Python loop over the
+recorded instructions. The prover sends the VM AIRs (``prefer_interp``) and every
 quotient domain of 2^21 points or more here, as ``miden_tpu`` does
 (``stark/prover.py`` :func:`~.prover.uses_program`). The very same
 ``Air.eval`` is recorded, so the α-fold order and every constraint value
@@ -244,7 +246,8 @@ class ConstraintProgram:
             + [(3, c, 0) for c in range(3 + p)]
         )
         assert len(self._vec_sources) == self.n_vec
-        self._device_arrays: dict = {}
+        self._schedules: dict = {}
+        self._schedule_code: dict = {}  # (on_chip, device) -> Q1's packed stream on the device
 
     def _allocate(self, instrs, out_regs) -> None:
         """Linear-scan register reuse over the SSA stream. Slot 0 is a
@@ -285,30 +288,14 @@ class ConstraintProgram:
             r if r < n_fixed else n_fixed + mapping[r] for r in out_regs
         )
 
-    def device_arrays(self, device) -> tuple:
-        """Q1's tables on ``device``, made once: the instructions packed one
-        to a u64 (a | b << 20 | dst << 40 | op << 60) and one u32 per vector
-        register (source | next row << 2 | column << 3; sources 0 main, 1
-        preprocessed, 2 aux, 3 selectors and periodic columns)."""
-        key = str(device)
-        arrays = self._device_arrays.get(key)
-        if arrays is None:
-            if self.n_fixed + self.frame_size > _ID_LIMIT:
-                raise ValueError(f"{type(self.air).__name__}: {self.n_fixed + self.frame_size} registers, "
-                                 f"Q1 takes at most {_ID_LIMIT}")
-            c = self.code[: self.n_instr].astype(np.uint64)
-            packed = c[:, 1] | c[:, 2] << np.uint64(20) | c[:, 3] << np.uint64(40) | c[:, 0] << np.uint64(60)
-            desc = np.asarray([s | nx << 2 | col << 3 for s, col, nx in self._vec_sources], dtype=np.int32)
-            arrays = (
-                torch.from_numpy(packed.view(np.int64).copy()).to(device),
-                torch.from_numpy(desc).to(device),
-            )
-            self._device_arrays[key] = arrays
-        return arrays
+    def schedule(self, on_chip: int) -> Schedule:
+        """Q1's :class:`Schedule` of this program with at most ``on_chip``
+        frame slots in shared memory, made once."""
+        sched = self._schedules.get(on_chip)
+        if sched is None:
+            sched = self._schedules[on_chip] = make_schedule(self, on_chip)
+        return sched
 
-
-#: register ids are 20-bit fields of Q1's packed instructions
-_ID_LIMIT = 1 << 20
 
 _PROGRAM_CACHE: dict = {}
 
@@ -447,45 +434,399 @@ def run_program_plain(prog: ConstraintProgram, inp: ProgramInputs, points=None) 
     return out
 
 
+# -- Q1's schedule ----------------------------------------------------------------------
+#
+# Q1 does not run the recorded order. The host reorders the program once
+# (depth first from the two outputs, the larger operand first, so that a
+# value is read soon after it is made), loads an input read again within
+# LOAD_WINDOW instructions into the frame once, and allocates the frame
+# anew: a result read only by the next instruction stays in a register and
+# is never stored, and the stored values are split between ON-CHIP slots
+# (shared memory) and an OFF-CHIP remainder (a device scratch), the
+# on-chip ones chosen by how often they are read over their lifetime.
+# Every value is the same field operation on the same operands as in the
+# recorded program, so the outputs are bit for bit the same.
+
+#: where an operand lives (two bits of a scheduled instruction)
+KIND_ON, KIND_OFF, KIND_SCALAR, KIND_INPUT = 0, 1, 2, 3
+#: the destination kind of a result that only the next instruction reads
+DST_NONE = 2
+#: bits of each offset (destination, operand a, operand b) of a scheduled instruction
+OFFSET_BITS = 16
+#: bit 10 of a scheduled instruction: it reads an off-chip slot or an input,
+#: or stores off chip, and takes the kernel's general path (:func:`is_rare`);
+#: the others read only the previous result, on-chip slots and scalars
+_RARE = 1 << 10
+#: an input read again within this many scheduled instructions is loaded
+#: into the frame once (a LOAD: the input plus the constant 0) and read there
+LOAD_WINDOW = 128
+#: instructions a warp fetches at once; the packed stream is padded to a
+#: multiple, plus one batch that is fetched ahead and never run
+BATCH = 32
+_A_PREV, _B_PREV = 1 << 8, 1 << 9
+#: an instruction that reads only the previous result and stores nothing
+_PAD = 0 | DST_NONE << 2 | _A_PREV | _B_PREV
+#: heuristic subtree sizes are capped (a DAG's tree size grows exponentially)
+_SIZE_CAP = 1 << 40
+
+
+@dataclass
+class Schedule:
+    """Q1's tables for one program and one on-chip slot budget.
+
+    ``code`` holds one u64 a scheduled instruction (``n_instr`` of them,
+    padded with no-ops to ``n_run``, a multiple of BATCH, plus one batch):
+    op in bits 0-1 (ADD, SUB, MUL), the destination's kind in 2-3 (KIND_ON,
+    KIND_OFF or DST_NONE), operand a's and b's kinds in 4-5 and 6-7, bit
+    8 / 9 set where a / b is the previous instruction's result,
+    :func:`is_rare` in bit 10, and the destination's, a's and b's offsets
+    in bits 16, 32 and 48 (OFFSET_BITS each): a slot, a scalar's index in
+    the scalar block, or an input's descriptor ``column << 3 | next row <<
+    2 | source`` (:func:`encode`). A LOAD adds the constant 0 to its input.
+    ``outs`` are the two outputs as ``kind | offset << 2``. ``order`` is the
+    scheduled stream: the index of a recorded instruction, or ``~r`` for a
+    LOAD of vector register r. The frame has ``n_on`` on-chip slots and
+    ``n_off`` off-chip ones."""
+
+    order: np.ndarray
+    code: np.ndarray
+    n_instr: int
+    n_run: int
+    outs: tuple
+    n_on: int
+    n_off: int
+    #: per point: stores, frame reads, previous-result reads, on-chip accesses, global input reads
+    stores: int
+    frame_reads: int
+    prev_reads: int
+    on_chip_accesses: int
+    input_reads: int
+
+    @property
+    def frame_size(self) -> int:
+        return self.n_on + self.n_off
+
+
+def _ssa(prog: ConstraintProgram) -> tuple:
+    """The recorded stream as SSA: per instruction (op, a, b), an operand
+    ``>= 0`` the index of the instruction that made it and ``< 0`` the
+    input or scalar register ``~ref``; the two outputs likewise."""
+    nf = prog.n_fixed
+    writer: dict = {}
+    ops = []
+    for i, (op, a, b, d) in enumerate(prog.code[: prog.n_instr].tolist()):
+        ops.append((op, writer[a] if a >= nf else ~a, writer[b] if b >= nf else ~b))
+        writer[d] = i
+    return ops, [writer[r] if r >= nf else ~r for r in prog.out_slots]
+
+
+def _depth_first(ops: list, outs: list) -> list:
+    """A topological order of the instructions: depth first from the
+    outputs, each instruction after its operands, the operand with the
+    larger subtree first; instructions no output reads (dead results)
+    follow, in recorded order."""
+    size = [0] * len(ops)
+    for i, (_, a, b) in enumerate(ops):
+        size[i] = min(_SIZE_CAP, 1 + (size[a] if a >= 0 else 0) + (size[b] if b >= 0 else 0))
+    seen = bytearray(len(ops))
+    order = []
+    for root in [o for o in outs if o >= 0] + list(range(len(ops))):
+        stack = [(root, False)]
+        while stack:
+            x, ready = stack.pop()
+            if seen[x]:
+                continue
+            if ready:
+                seen[x] = 1
+                order.append(x)
+                continue
+            stack.append((x, True))
+            _, a, b = ops[x]
+            kids = [k for k in (a, b) if k >= 0 and not seen[k]]
+            if len(kids) == 2 and size[kids[1]] > size[kids[0]]:
+                kids.reverse()
+            stack.extend((k, False) for k in reversed(kids))
+    return order
+
+
+def _with_loads(ops: list, order: list, prog: ConstraintProgram) -> tuple:
+    """Groups each input's reads in ``order`` into runs whose neighbours
+    lie within LOAD_WINDOW instructions; a run of two or more reads becomes
+    one LOAD, the input plus the constant 0 (appended to ``ops``, placed
+    just before the run's first read), whose result they read. Returns
+    (ops, stream)."""
+    n_vec, zero = prog.n_vec, prog.n_inputs + prog.const_values.index(0)
+    reads: dict = {}
+    for t, i in enumerate(order):
+        _, a, b = ops[i]
+        for k, r in ((1, a), (2, b)):
+            if r < 0 and ~r < n_vec:
+                reads.setdefault(~r, []).append((t, i, k))
+    ops = [list(o) for o in ops]
+    before: dict = {}
+    for reg in sorted(reads):
+        runs = [[reads[reg][0]]]
+        for u in reads[reg][1:]:
+            if u[0] - runs[-1][-1][0] <= LOAD_WINDOW:
+                runs[-1].append(u)
+            else:
+                runs.append([u])
+        for run in runs:
+            if len(run) < 2:
+                continue
+            v = len(ops)
+            ops.append([OP_ADD, ~reg, ~zero])
+            for _, i, k in run:
+                ops[i][k] = v
+            before.setdefault(run[0][0], []).append(v)
+    stream = []
+    for t, i in enumerate(order):
+        stream += before.get(t, [])
+        stream.append(i)
+    return [tuple(o) for o in ops], stream
+
+
+def make_schedule(prog: ConstraintProgram, on_chip: int) -> Schedule:
+    """Schedules ``prog`` for Q1 with at most ``on_chip`` on-chip slots
+    (see the comment at the head of this section)."""
+    ops, outs = _ssa(prog)
+    ops, stream = _with_loads(ops, _depth_first(ops, outs), prog)
+    n, n_vals = len(stream), len(ops)
+    pos = np.empty(n_vals, dtype=np.int64)
+    pos[stream] = np.arange(n)
+
+    def is_prev(r: int, t: int) -> bool:
+        return r >= 0 and pos[r] == t - 1
+
+    # a value is stored where some instruction other than the next reads it, or it is an output
+    last = np.full(n_vals, -1, dtype=np.int64)
+    reads = np.zeros(n_vals, dtype=np.int64)
+    prev_reads = input_reads = 0
+    for t, v in enumerate(stream):
+        _, a, b = ops[v]
+        for r in (a, b):
+            if is_prev(r, t):
+                prev_reads += 1
+            elif r >= 0:
+                reads[r] += 1
+                last[r] = t
+            elif ~r < prog.n_vec:
+                input_reads += 1
+    for r in outs:
+        if r >= 0:
+            reads[r] += 1
+            last[r] = n
+    vals = np.nonzero(last >= 0)[0]
+    start, stop = pos[vals], last[vals]
+
+    # on chip: the values with the most accesses (a store and its reads) per
+    # instruction of lifetime, as long as no more than on_chip are live at once
+    on = np.zeros(n_vals, dtype=bool)
+    live = np.zeros(n + 1, dtype=np.int32)
+    density = (1 + reads[vals]) / (stop - start)
+    for j in np.lexsort((start, -density)):
+        p, q = start[j], stop[j]
+        if on_chip and live[p:q].max() < on_chip:
+            live[p:q] += 1
+            on[vals[j]] = True
+
+    # slots: a linear scan per pool; a value's slot is free again at its last read
+    ends: dict = {}
+    for v in vals.tolist():
+        ends.setdefault(int(last[v]), []).append(v)
+    slot = np.full(n_vals, -1, dtype=np.int64)
+    free: tuple = ([], [])
+    count = [0, 0]
+    for t, v in enumerate(stream):
+        for u in ends.get(t, ()):
+            free[0 if on[u] else 1].append(int(slot[u]))
+        if last[v] >= 0:
+            pool = 0 if on[v] else 1
+            slot[v] = free[pool].pop() if free[pool] else count[pool]
+            count[pool] = max(count[pool], int(slot[v]) + 1)
+
+    def operand(r: int) -> tuple:
+        if r >= 0:
+            return (KIND_ON if on[r] else KIND_OFF), int(slot[r])
+        reg = ~r
+        if reg < prog.n_vec:
+            s, col, nx = prog._vec_sources[reg]
+            return KIND_INPUT, col << 3 | nx << 2 | s
+        return KIND_SCALAR, reg - prog.n_vec
+
+    limit = 1 << OFFSET_BITS
+    n_run = -(-n // BATCH) * BATCH
+    code = np.full(n_run + BATCH, _PAD, dtype=np.uint64)
+    for t, v in enumerate(stream):
+        op, a, b = ops[v]
+        dst = (DST_NONE, 0) if last[v] < 0 else ((KIND_ON if on[v] else KIND_OFF), int(slot[v]))
+        args = [None if is_prev(r, t) else operand(r) for r in (a, b)]
+        for x in [dst] + [x for x in args if x is not None]:
+            if x[1] >= limit:
+                raise ValueError(f"{type(prog.air).__name__}: offset {x[1]} does not fit Q1's {OFFSET_BITS}-bit fields")
+        code[t] = encode(op, dst, *args)
+    outs_packed = tuple(kind | off << 2 for kind, off in map(operand, outs))
+    on_accesses = int((on[vals] * (1 + reads[vals])).sum())
+    return Schedule(
+        order=np.asarray([v if v < prog.n_instr else ops[v][1] for v in stream], dtype=np.int64),
+        code=code.view(np.int64), n_instr=n, n_run=n_run, outs=outs_packed, n_on=count[0], n_off=count[1],
+        stores=len(vals), frame_reads=int(reads[vals].sum()) - sum(1 for r in outs if r >= 0),
+        prev_reads=prev_reads, on_chip_accesses=on_accesses, input_reads=input_reads,
+    )
+
+
+def is_rare(dst: tuple, a, b) -> bool:
+    """Whether an instruction takes the kernel's general path: it reads an
+    off-chip slot or an input, or stores off chip."""
+    return dst[0] == KIND_OFF or any(x is not None and x[0] in (KIND_OFF, KIND_INPUT) for x in (a, b))
+
+
+def encode(op: int, dst: tuple, a, b) -> int:
+    """One packed scheduled instruction (see :class:`Schedule`); ``dst`` is
+    (kind, offset), an operand None where it is the previous instruction's
+    result, else (kind, offset)."""
+    word = op | dst[0] << 2 | (_RARE if is_rare(dst, a, b) else 0) | dst[1] << 16
+    for x, flag, kind_at, off_at in ((a, _A_PREV, 4, 32), (b, _B_PREV, 6, 48)):
+        word |= flag if x is None else x[0] << kind_at | x[1] << off_at
+    return word
+
+
+def decode(word: int) -> tuple:
+    """The inverse of :func:`encode`: (op, (dst kind, dst offset), a, b)."""
+    mask = (1 << OFFSET_BITS) - 1
+    a = None if word & _A_PREV else ((word >> 4) & 3, (word >> 32) & mask)
+    b = None if word & _B_PREV else ((word >> 6) & 3, (word >> 48) & mask)
+    return word & 3, ((word >> 2) & 3, (word >> 16) & mask), a, b
+
+
+def run_schedule_plain(prog: ConstraintProgram, sched: Schedule, inp: ProgramInputs) -> torch.Tensor:
+    """Plain reader of Q1's own tables: the scheduled stream, decoded from
+    the packed words as the kernel decodes them, over every point at once
+    (torch field ops; a small-``nd`` check of the schedule and its packing,
+    on the CPU). Returns (nd, 2)."""
+    nd, device = inp.nd, inp.scal.device
+    cur = torch.arange(nd, device=device)
+    rows = (cur, (cur + inp.next_offset) & (nd - 1))
+    frames = ([None] * sched.n_on, [None] * sched.n_off)
+    prev = None
+
+    def fetch(kind: int, off: int):
+        if kind in (KIND_ON, KIND_OFF):
+            return frames[kind][off]
+        if kind == KIND_SCALAR:
+            return inp.scal[off]
+        s, nx, col = off & 3, (off >> 2) & 1, off >> 3
+        src = inp.sources[s]
+        return src[col] if s == 3 else src[:, col].index_select(0, rows[nx])
+
+    for word in sched.code[: sched.n_instr].view(np.uint64).tolist():
+        op, (dkind, doff), a, b = decode(word)
+        va = prev if a is None else fetch(*a)
+        vb = prev if b is None else fetch(*b)
+        r = _OPS[op](va, vb)
+        if dkind != DST_NONE:
+            frames[dkind][doff] = r
+        prev = r
+    out = torch.empty((nd, 2), dtype=torch.int64, device=device)
+    for c, o in enumerate(sched.outs):
+        out[:, c] = fetch(o & 3, o >> 2)
+    return out
+
+
 # -- Q1 ---------------------------------------------------------------------------------
 
 #: Q1 (``csrc/constraints.cu``): one launch per program run over a quotient coset
 Q1_KERNEL = cuda.Kernel(
     "constraints", "constraints_eval",
-    [cuda.P, cuda.I64, cuda.P, cuda.I32, cuda.P, cuda.I32,
+    [cuda.P, cuda.I64, cuda.P, cuda.I32,
      cuda.P, cuda.P, cuda.P, cuda.P, cuda.I64, cuda.I64, cuda.I64, cuda.I64,
      cuda.I64, cuda.I64, cuda.I64, cuda.I64,
-     cuda.P, cuda.I64, cuda.P, cuda.I64, cuda.I64, cuda.I32, cuda.I32, cuda.P],
+     cuda.P, cuda.I32, cuda.I32, cuda.I32, cuda.I32, cuda.P, cuda.I64, cuda.I64, cuda.I32, cuda.I32, cuda.P],
 )
-#: device bytes Q1's frame scratch may take: the grid is cut below the
-#: resident threads when their frames would not fit
-FRAME_BUDGET_BYTES = 1 << 30
-_BLOCK = 128  # kBlock of csrc/constraints.cu
 
 
-_resident: dict = {}
+@dataclass(frozen=True)
+class Q1Setting:
+    """How Q1 launches: ``points`` a thread evaluates with each decoded
+    instruction (1, 2 or 4), ``block`` threads a block (a multiple of 32, at
+    most 256), at most ``on_chip`` frame slots a point in shared memory, and
+    the bytes the off-chip remainder may take (the grid is cut to fit:
+    grid × points a block × off-chip slots × 8 B). The defaults are the
+    fastest of ``bench_quotient --sweep`` on the VM core's 2^21 points:
+    Q1 waits on each instruction's result, so it runs faster with more
+    points in flight an SM, and few on-chip slots leave room for them."""
+
+    points: int = 2
+    block: int = 64
+    on_chip: int = 8
+    spill_bytes: int = 512 << 20
 
 
-def q1_threads(prog: ConstraintProgram, nd: int) -> int:
-    """Threads of Q1's grid for ``prog`` over nd points: as many as the card
-    holds at once, fewer where the frames would exceed FRAME_BUDGET_BYTES or
-    the points run out; a multiple of the block size."""
-    key = (prog.n_vec, prog.n_fixed)
-    if key not in _resident:
-        fn = cuda.load("constraints").constraints_resident_threads
-        fn.argtypes = [ctypes.c_uint32, ctypes.c_uint32, ctypes.POINTER(ctypes.c_int64)]
+#: the setting Q1 launches with unless a caller gives one
+Q1_DEFAULT = Q1Setting()
+
+
+@dataclass
+class Q1Plan:
+    """One launch of Q1: the schedule, the grid and its shared memory."""
+
+    sched: Schedule
+    setting: Q1Setting
+    blocks: int
+    blocks_per_sm: int
+    shared_bytes: int
+
+    @property
+    def tile(self) -> int:
+        """Points a block evaluates at once."""
+        return self.setting.block * self.setting.points
+
+    @property
+    def spill_bytes(self) -> int:
+        return 8 * self.sched.n_off * self.blocks * self.tile
+
+    def describe(self) -> dict:
+        return {"k": self.setting.points, "block": self.setting.block, "tile": self.tile,
+                "on_chip_slots": self.sched.n_on, "off_chip_slots": self.sched.n_off,
+                "blocks": self.blocks, "blocks_per_sm": self.blocks_per_sm,
+                "shared_bytes": self.shared_bytes, "spilled_bytes": self.spill_bytes}
+
+
+_occupancy: dict = {}
+
+
+def q1_plan(prog: ConstraintProgram, nd: int, setting: Q1Setting = Q1_DEFAULT) -> Q1Plan:
+    """Q1's launch for ``prog`` over nd points: a persistent grid of as many
+    blocks as the card holds at once with this setting's shared memory,
+    fewer where the tiles run out or the off-chip remainder would pass
+    ``setting.spill_bytes`` (at least one block). Raises where the card
+    holds no block of this setting."""
+    if setting.points not in (1, 2, 4) or setting.block % 32 or not 32 <= setting.block <= 256:
+        raise ValueError(f"Q1: unsupported setting {setting}")
+    sched = prog.schedule(setting.on_chip)
+    tile = setting.block * setting.points
+    smem = 8 * (prog.n_fixed - prog.n_vec + sched.n_on * tile)
+    key = (setting.points, setting.block, smem)
+    if key not in _occupancy:
+        fn = cuda.load("constraints").constraints_occupancy
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.POINTER(ctypes.c_int),
+                       ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
-        threads = ctypes.c_int64(0)
-        err = fn(prog.n_vec, prog.n_fixed, ctypes.byref(threads))
+        per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+        err = fn(setting.points, setting.block, smem, ctypes.byref(per_sm), ctypes.byref(sms))
         if err != 0:
-            raise cuda.KernelError(f"constraints_resident_threads: CUDA error {err}")
-        _resident[key] = threads.value
-    by_budget = FRAME_BUDGET_BYTES // (8 * prog.frame_size)
-    threads = min(_resident[key], by_budget, -(-nd // _BLOCK) * _BLOCK)
-    return max(_BLOCK, threads // _BLOCK * _BLOCK)
+            raise cuda.KernelError(f"constraints_occupancy: CUDA error {err} ({smem} bytes of shared memory)")
+        if per_sm.value < 1:
+            raise cuda.KernelError(f"Q1: no block of {setting} ({smem} bytes of shared memory) fits an SM")
+        _occupancy[key] = (per_sm.value, sms.value)
+    per_sm, sms = _occupancy[key]
+    blocks = min(per_sm * sms, -(-nd // tile))
+    if sched.n_off:
+        blocks = min(blocks, max(1, setting.spill_bytes // (8 * sched.n_off * tile)))
+    return Q1Plan(sched=sched, setting=setting, blocks=blocks, blocks_per_sm=per_sm, shared_bytes=smem)
 
 
-def run_program_kernel(prog: ConstraintProgram, inp: ProgramInputs) -> torch.Tensor:
+def run_program_kernel(prog: ConstraintProgram, inp: ProgramInputs, setting: Q1Setting = Q1_DEFAULT) -> torch.Tensor:
     """Q1 on CUDA tensors: the program over every point of the coset."""
     nd = inp.nd
     if nd < 1 or nd & (nd - 1):
@@ -507,13 +848,17 @@ def run_program_kernel(prog: ConstraintProgram, inp: ProgramInputs) -> torch.Ten
         ptrs.append(src.data_ptr())
         point_strides.append(src.stride(point_dim))
         col_strides.append(src.stride(1 - point_dim))
-    code, desc = prog.device_arrays(inp.scal.device)
-    threads = q1_threads(prog, nd)
-    frame = torch.empty((prog.frame_size * threads,), dtype=torch.int64, device=inp.scal.device)
-    out = torch.empty((nd, 2), dtype=torch.int64, device=inp.scal.device)
+    device = inp.scal.device
+    plan = q1_plan(prog, nd, setting)
+    sched = plan.sched
+    code = prog._schedule_code.get((setting.on_chip, str(device)))
+    if code is None:
+        code = prog._schedule_code[(setting.on_chip, str(device))] = torch.from_numpy(sched.code).to(device)
+    spill = torch.empty((max(1, plan.spill_bytes // 8),), dtype=torch.int64, device=device)
+    out = torch.empty((nd, 2), dtype=torch.int64, device=device)
     Q1_KERNEL.launch(
-        code.data_ptr(), prog.n_instr, desc.data_ptr(), prog.n_vec, inp.scal.data_ptr(), prog.n_fixed,
-        *ptrs, *point_strides, *col_strides, frame.data_ptr(), threads, out.data_ptr(), nd,
-        inp.next_offset, *prog.out_slots, key=(type(prog.air).__name__, nd),
+        code.data_ptr(), sched.n_run, inp.scal.data_ptr(), prog.n_fixed - prog.n_vec,
+        *ptrs, *point_strides, *col_strides, spill.data_ptr(), sched.n_on, setting.points, setting.block,
+        plan.blocks, out.data_ptr(), nd, inp.next_offset, *sched.outs, key=(type(prog.air).__name__, nd),
     )
     return out

@@ -188,7 +188,8 @@ def test_program_path_equals_eager_evaluator(case):
 
 def test_keccak_program_path_equals_eager_evaluator():
     """The session's widest AIR (1958 columns, 68 periodic): its program
-    takes register ids far past 10 bits, which Q1's 20-bit fields hold."""
+    takes register ids far past 10 bits; Q1's schedule packs its operands
+    in 18-bit offsets."""
     (_, air, publics), = [x for x in _session_airs() if x[0] == "KeccakAir"]
     log_d = log_quotient_degree(air.constraint_degree())
     dom = LiftedDomain(5, log_d, 0)  # its periodic columns have period 32
@@ -201,7 +202,8 @@ def test_keccak_program_path_equals_eager_evaluator():
     args = (air, dom, rand(dom.lde_height, air.width), rand(dom.lde_height, 2 * air.aux_width), log_d,
             rand(2), pubs, rand(air.num_randomness, 2), rand(air.num_aux_values, 2))
     prog = interp.get_program(air, len(publics), air.num_randomness, air.num_aux_values)
-    assert 1 << 10 <= prog.n_fixed + prog.frame_size < interp._ID_LIMIT
+    assert 1 << 10 <= prog.n_fixed + prog.frame_size
+    assert prog.schedule(interp.Q1_DEFAULT.on_chip).frame_size < 1 << interp.OFFSET_BITS
     assert torch.equal(prover.evaluate_quotient_program(*args), prover.evaluate_quotient_eager(*args))
 
 

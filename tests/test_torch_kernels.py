@@ -300,18 +300,70 @@ def test_constraint_kernel_matches_plain(which, stride):
         _rand(rng, (air.num_aux_values, 2)), [_rand(rng, (nd,)) for _ in air.periodic_columns],
         _rand(rng, (2,)),
     )
+    pp = view(air.preprocessed_width)
     before = interp.Q1_KERNEL.launches
-    got = interp.evaluate_folded_constraints(*inputs, pp=view(air.preprocessed_width), next_offset=d)
+    got = interp.evaluate_folded_constraints(*inputs, pp=pp, next_offset=d)
     torch.cuda.synchronize()
     assert interp.Q1_KERNEL.launches == before + 1
     real = interp.run_program
     try:
         interp.run_program = interp.run_program_plain
-        want = interp.evaluate_folded_constraints(*inputs, pp=view(air.preprocessed_width), next_offset=d)
+        want = interp.evaluate_folded_constraints(*inputs, pp=pp, next_offset=d)
     finally:
         interp.run_program = real
     assert interp.Q1_KERNEL.launches == before + 1
     assert _equal(got, want)
+
+
+def _q1_case(which: str, nd: int, d: int, seed: int):
+    """(program, ProgramInputs) of an AIR of :func:`_q1_airs` on random card
+    inputs, its LDE sources row-strided views (stride 2)."""
+    from miden_tpu_torch.stark import interp
+
+    air = _q1_airs()[which]
+    rng = np.random.default_rng(seed)
+
+    def view(k):
+        return _rand(rng, (nd * 2, k))[::2] if k else None
+
+    return interp.program_inputs(
+        air, view(air.width), view(2 * air.aux_width), tuple(_rand(rng, (nd,)) for _ in range(3)),
+        _rand(rng, (max(40, air.num_public_values),)), _rand(rng, (air.num_randomness, 2)),
+        _rand(rng, (air.num_aux_values, 2)), [_rand(rng, (nd,)) for _ in air.periodic_columns],
+        _rand(rng, (2,)), view(air.preprocessed_width), d,
+    )
+
+
+@pytest.mark.parametrize("points,block,on_chip", [
+    (2, 128, 4),  # the core's 160-slot frame far past the on-chip budget: 156 slots off chip
+    (1, 64, 0),  # no slot on chip
+    (4, 64, 48),
+    (2, 32, 160),  # every slot on chip
+])
+@pytest.mark.parametrize("which", ["core", "keccak"])
+def test_constraint_kernel_settings_match_plain(which, points, block, on_chip):
+    """Q1 under other launch settings: k points a thread, the block, and an
+    on-chip budget that leaves most of the frame, or all of it, off chip."""
+    from miden_tpu_torch.stark import interp
+
+    prog, inp = _q1_case(which, 1 << 11, 8, seed=points * 1000 + on_chip)
+    setting = interp.Q1Setting(points=points, block=block, on_chip=on_chip)
+    plan = interp.q1_plan(prog, inp.nd, setting)
+    assert plan.sched.n_on <= on_chip and plan.sched.frame_size >= plan.sched.n_on
+    got = interp.run_program_kernel(prog, inp, setting)
+    assert _equal(got, interp.run_program_plain(prog, inp))
+
+
+@pytest.mark.parametrize("nd", [1, 4, 64])
+def test_constraint_kernel_domain_smaller_than_a_tile(nd):
+    """nd below one tile (block x k points): one block, its threads past nd
+    write nothing, next rows wrap within the domain."""
+    from miden_tpu_torch.stark import interp
+
+    prog, inp = _q1_case("chiplets", nd, max(1, nd // 4), seed=nd)
+    plan = interp.q1_plan(prog, nd)
+    assert plan.blocks == 1 and plan.tile > nd
+    assert _equal(interp.run_program_kernel(prog, inp), interp.run_program_plain(prog, inp))
 
 
 def test_constraint_kernel_refuses_what_it_does_not_take():
