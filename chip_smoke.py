@@ -19,7 +19,8 @@ Phases, one line each (plus details):
    twin and rescue_host;
 3. prove miden_shaped_statement(10) at MIDEN_PARAMS on the card and on the
    CPU: the proof bytes must be equal and the port's verifier must accept;
-4. prove miden_shaped_statement(18) at MIDEN_PARAMS on the card (core
+4. prove miden_shaped_statement(18) at MIDEN_PARAMS on the card, eagerly
+   (fused=False; core
    2^18 x 51 with 8 EF aux columns, chiplets 2^16 x 22, perm 2^14 x 16, LDE
    2^21 rows): one warm-up, one timed prove (CUDA events), its kernel
    launch counts (per entry, and K3's permutations per shape), the span
@@ -28,25 +29,39 @@ Phases, one line each (plus details):
    program (repeat.10) at MIDEN_PARAMS on the card and on the CPU, proof
    bytes equal and verify_program accepting; (b) the fib program with
    repeat.84000 (core 2^18 rows, bench.py's real-program row) at
-   MIDEN_PARAMS: one warm-up and three timed prove_program calls (host
-   clock around the whole call, as bench.py times it), execute_and_trace's
-   time beside them, the AIRs' log heights, the kernel launch counts of one
-   proof (every entry of the path must be launched, and no other), the span
-   breakdown of one traced prove ("evaluate constraints" per AIR too), peak
-   memory, the proof size, verify_program's verdict and the top of the
-   stack against fib mod p; on the warm-up's inputs, each VM AIR's quotient
-   through Q1 equals the eager evaluator's over its whole domain (the core's
-   2^21 points);
+   MIDEN_PARAMS through the fused prover (stark/fused.py), the card's
+   default: the warm-up (the shape's first proof, its phases run eagerly;
+   its bytes are the reference), the capture call (the five phases captured
+   into CUDA graphs and replayed), timed apart, and three timed replays
+   (host clock around the whole call, as bench.py times it), each equal to
+   the warm-up's bytes; execute_and_trace's time beside them, the AIRs' log
+   heights, the kernel launch counts of a replayed proof (equal to the
+   warm-up's; every entry of the path must be launched, and no other; a
+   replay counts the launches of its capture once the graph's kernel nodes,
+   read back from it, were found to be those launches), the
+   span breakdown of one traced eager prove (fused=False; "evaluate
+   constraints" per AIR too) and of one traced replay (a span a phase), each
+   phase's graph nodes, capture, node read and instantiate seconds, the eager and the
+   fused peak memory, the proof size, verify_program's verdict and the top
+   of the stack against fib mod p; on the warm-up's inputs, each VM AIR's
+   quotient through Q1 equals the eager evaluator's over its whole domain
+   (the core's 2^21 points);
    (c) the trace of (b) was written by the C trace generator, not the
    Python interpreter;
    5c. the same facade under PcsParams(hash_name="rpo256" | "rpx256"), whose
    trees R1 / R2 build: the fib program (repeat.10) card == CPU and
-   verified under each; vm-fib-18-rpo256 (the program of (b)), a traced
-   warm-up and one timed call, verified; vm-fib-18-rpx256, one timed call,
-   verified;
+   verified under each; vm-fib-18-rpo256 and -rpx256 (the program of (b))
+   on the default path: the warm-up (eager; traced for rpo256), the
+   capture call and one replay of the phases' graphs, timed, each equal
+   to the warm-up's bytes, the replay's launches equal to the warm-up's
+   (R1 / R2 among them), each phase's graph, verified;
    5d. bench_airs.square_lut_statement, an AIR with preprocessed columns,
    at MIDEN_PARAMS: card == CPU at 2^10 rows, one proof at 2^18 rows on
    the card, verified against its preprocessed commitment;
+   5e. a second program of (b)'s log heights (fib repeat.83999 on stack
+   inputs [3, 5]: another program hash, other publics), proved eagerly
+   (fused=False) and then replayed through (b)'s graphs: the bytes equal,
+   and the replayed proof verifies;
 6. the precompile session, the second STARK: (a) the pinned sessions of
    ``miden_tpu_torch.bench_session`` (U256_SESSION, MIXED_SESSION with every
    session AIR, and its two halves) proved at TEST_PARAMS on the card, their
@@ -58,7 +73,8 @@ Phases, one line each (plus details):
    8 x keccak256::hash_memory of 1 KiB, a 32-deep keccak256::merge path)
    through prove_program at MIDEN_PARAMS, then its
    deferred state through prove_deferred_state_dag on the card: one traced
-   warm-up and one timed session proof, the trace-build time, the AIRs' log
+   session proof (the first of its shape: eager), its seconds, the
+   trace-build time, the AIRs' log
    heights, launches, spans, peak memory, proof size, and
    verify_program(proof, deferred=session) accepting where a tampered root
    and a missing session are rejected;
@@ -68,7 +84,8 @@ Phases, one line each (plus details):
    on the card and on the CPU, bytes equal; (b) stdlib-blake3-18, the
    reference's blake3_1to1 benchmark program (28 blake3::hash_1to1 calls,
    252,138 cycles, log heights [18, 18, 13]: the first full-height chiplets
-   AIR) at MIDEN_PARAMS: a traced warm-up and one timed prove_program call,
+   AIR) at MIDEN_PARAMS: a traced warm-up and one timed prove_program call
+   (eager: fused=False),
    the execute_and_trace span, launches, peak memory, proof size, the digest
    against 28 host BLAKE3s, verified, and the chiplets and Poseidon2 AIRs'
    LogUp aux traces card == CPU at full height; (c) stdlib-host, one
@@ -94,7 +111,8 @@ Phases, one line each (plus details):
 12. multi-device proving (``miden_tpu_torch.dist``, ``bench_dist``): (a) the
    program of 5(b) through prove_program under use_mesh(make_mesh("cuda")),
    an NCCL group of world size 1 (NCCL refuses two ranks on one card): its
-   bytes equal 5(b)'s, its seconds and peak memory beside 5(b)'s, every
+   bytes equal 5(b)'s, its seconds beside 5e's eager call of that shape and
+   its peak memory beside 5(b)'s eager peak (no fused phases under a mesh), every
    entry of the path launched; (b) on 4 gloo ranks sharing the card (spawned
    after the build, loading its libraries): coset_lde_sharded and
    build_tree_sharded at the shapes of vm-fib-18's main trace ((2^18, 51)
@@ -106,7 +124,8 @@ Phases, one line each (plus details):
    both ranks' bytes equal 5(a)'s CPU bytes. The shapes K1–K3 launched with
    in (a)–(c) join phase 7's;
 7. hold each kernel against its plain twin and time it, with its bound, at
-   every shape phases 4, 5(b), 5c, 6(b), 10(b), 11(c) and 12 launched it with (K1 printed at
+   every shape phases 4, 5(b), 5c, 6(b), 10(b), 11(c) and 12 launched it with (5(b) and 5c: a
+   replay's shapes; K1 printed at
    each shape; a sponge entry over every state of a launch, or over 2^14
    states spread over it where the plain twin would take more than 30 s),
    with its time per proof of each kind; R1 / R2's permute entries, which no
@@ -120,9 +139,11 @@ Phases, one line each (plus details):
    the card, its wall time printed) and verify, each in a subprocess; the
    written proof bytes equal 5(b)'s proof, verify exits 0 and exits 1 on a
    proof with one flipped byte, the compiled bytes decode to the program's
-   digest; then the CLI's prove once in this process, with the kernel
-   counts set to 0 just before it and read just after (the path's every
-   entry launched, and no other); (b) the fib program (repeat.10) through
+   digest (compile and run side by side, verify beside the flipped
+   proof's verify, prove alone); then the CLI's prove once in this process,
+   with the kernel counts set to 0 just before it and read just after (the
+   path's every entry launched, and no other); (b), which runs before (a),
+   the fib program (repeat.10) through
    the MAST wire form and through a ``.masp`` package, each decoded
    program proved on the card to 5(a)'s CPU bytes; (c) pause/resume of the
    program of 5(b), a budget of 2^16 cycles and resumed by 2^16 until it
@@ -132,11 +153,15 @@ Phases, one line each (plus details):
    opened at 27 queries and verified on the host, with card == CPU roots
    at (2^10, 51) and (2^6, 24);
 8. the device-busy share of one more VM fib-18 prove_program under
-   torch.profiler (last on the card: after the profiler every launch costs
-   the host more), the JSON line of kernels, the card's name and power
+   torch.profiler, a replay of its graphs (after the shape's warm-up and
+   capture; last on the card: after the profiler every launch costs
+   the host more), and the port's kernels among the device's events of
+   that replay, per entry, equal to 5(b)'s eager warm-up's launches; the
+   JSON line of kernels, the card's name and power
    limit, and the result line ``{"ok": true, "device": {...}}`` last.
 
-The CPU halves of the card == CPU checks (phases 3, 5a, 5c, 5d, 10a, 10d,
+The CPU halves of the card == CPU checks (phases 3, 5a, 5c, 5d, 6a's
+session AIRs, 10a, 10b's aux traces (with the program's execution), 10d,
 11d) are made in one spawned process of their own (CpuHalves, CPU_THREADS
 torch threads), queued right after the build, while the card works; each
 phase waits for its bytes where it compares them.
@@ -147,6 +172,7 @@ needs one CUDA device, and the repository around it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -160,6 +186,8 @@ import numpy as np
 SEED = [0x6D69, 0x6465, 0x6E2D, 0x7470]  # the bench's domain separator
 SMALL_LOG, FULL_LOG = 10, 18
 VM_SMALL_REPS, VM_FULL_REPS = 10, 84000  # fib loop: 3 VM ops a repeat
+#: phase 5e: another program of vm-fib-18's log heights, other stack inputs
+VM_OTHER_REPS, VM_OTHER_INPUTS = 83999, [3, 5]
 PP_SMALL_LOG, PP_FULL_LOG = 10, 18  # rows of the preprocessed statement
 
 
@@ -207,10 +235,12 @@ def max_abs_err(a, b) -> int:
     return max(abs(int(u) - int(v)) for u, v in zip(x[bad], y[bad]))
 
 
-def device_busy(torch, fn) -> str:
+def device_busy(torch, fn) -> tuple:
     """One run of ``fn`` under torch.profiler: device time (kernels, copies,
     fills) against wall time, and the kernels that take the most device
-    time. Only device activity is traced. The device's events are read
+    time; and ``{kernel entry: launches}``, the port's kernels among the
+    device's events (by their device function's name,
+    ``cuda.kernel_named``). Only device activity is traced. The device's events are read
     straight from kineto's results: the profiler's Python event tree
     (``key_averages``) for the ~600k launches of a VM proof took minutes,
     and its Chrome trace is slower to write and read back than these
@@ -222,20 +252,28 @@ def device_busy(torch, fn) -> str:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    from miden_tpu_torch.utils.cuda import kernel_named
+
     sums: dict = {}
     on_card = torch.autograd.DeviceType.CUDA
     for ev in prof.profiler.kineto_results.events():
         if ev.device_type() == on_card:
-            entry = sums.setdefault(ev.name().removeprefix("void ").removeprefix("at::native::"), [0, 0])
+            entry = sums.setdefault(ev.name(), [0, 0])
             entry[0] += ev.duration_ns()
             entry[1] += 1
+    launches: dict = {}
+    for name, (_ns, count) in sums.items():
+        kernel = kernel_named(name)
+        if kernel is not None:
+            launches[kernel.symbol] = launches.get(kernel.symbol, 0) + count
     if not sums:
-        return f"wall {wall:.4f} s under the profiler; device time not measured (no device events)"
+        return f"wall {wall:.4f} s under the profiler; device time not measured (no device events)", launches
     rows = sorted(((ns, k, c) for k, (ns, c) in sums.items()), reverse=True)
     total = sum(r[0] for r in rows) / 1e9
-    top = "; ".join(f"{k[:100]} {ns / 1e6:.2f} ms x{c}" for ns, k, c in rows[:8])
+    top = "; ".join(f"{k.removeprefix('void ').removeprefix('at::native::')[:100]} {ns / 1e6:.2f} ms x{c}"
+                    for ns, k, c in rows[:8])
     return (f"wall {wall:.4f} s under the profiler, device busy {total:.4f} s "
-            f"({100 * total / wall:.1f} %); top: {top}")
+            f"({100 * total / wall:.1f} %); top: {top}"), launches
 
 
 def kernel_table() -> dict:
@@ -315,14 +353,31 @@ def record_shapes(kernels, into) -> None:
             into[name][key] = into[name].get(key, 0) + count
 
 
-def session_airs_card_vs_cpu(torch, dev: str) -> str:
+def session_airs_card_vs_cpu(dev: str) -> str:
     """The three MIXED digests were minted on the card, so they show only
     that the card repeats itself. This holds the card to the CPU without a
     CPU proof (whose LMCS lift to the range table's 2^20-row LDE takes
     hours): on MIXED_SESSION's traces and publics, each of the keccak and EC
     AIRs builds its LogUp aux trace, and evaluates its quotient over the
-    LDEs at TEST_PARAMS' blowup, on the card and on the CPU, from the same
-    seeded randomness and α. Every output must be bit-equal."""
+    LDEs at TEST_PARAMS' blowup, on the card and on the CPU (the CPU
+    process's job "session_airs"), from the same seeded randomness and α.
+    Every output must be bit-equal."""
+    from miden_tpu_torch.field import goldilocks as F
+
+    got = session_air_outputs(dev)
+    want, _ = CPU_HALVES.get("session_airs")
+    checked = []
+    for (name, log_n, outs), (_, _, wants) in zip(got, want):
+        for a, b in zip(outs, wants):
+            if not np.array_equal(F.to_numpy(a.reshape(-1)), b.reshape(-1)):
+                raise AssertionError(f"{name}: card and CPU aux traces or quotients differ")
+        checked.append(f"{name} (2^{log_n} rows, aux {tuple(outs[0].shape)}, quotient {outs[2].shape[0]} points)")
+    return ", ".join(checked)
+
+
+def session_air_outputs(dev: str) -> list:
+    """[(AIR name, log rows, [aux, aux values, quotient])] of the keccak and
+    EC AIRs on MIXED_SESSION's traces, on ``dev``."""
     from miden_tpu_torch import bench_session as BS
     from miden_tpu_torch.field import gl
     from miden_tpu_torch.field import goldilocks as F
@@ -354,13 +409,8 @@ def session_airs_card_vs_cpu(torch, dev: str) -> str:
             q = evaluate_quotient(air, dom, *lde, log_d, r[-1], pubs, r[:-1], vals)
             return [aux, vals, q]
 
-        got, want = run(dev), run("cpu")
-        for a, b in zip(got, want):
-            if max_abs_err(a.reshape(-1), b.reshape(-1)):
-                raise AssertionError(f"{type(air).__name__}: card and CPU aux traces or quotients differ")
-        checked.append(f"{type(air).__name__} (2^{log_n} rows, aux {tuple(got[0].shape)}, "
-                       f"quotient {got[2].shape[0]} points)")
-    return ", ".join(checked)
+        checked.append((type(air).__name__, log_n, run(dev)))
+    return checked
 
 
 def session_phase(torch, kernels, dev: str, pinned) -> tuple:
@@ -397,7 +447,7 @@ def session_phase(torch, kernels, dev: str, pinned) -> tuple:
         log(f"  {name}: {len(claims)} claims, log heights {pr.stark.log_heights}, proved in "
             f"{secs:.3f} s, sha256 {digest} == pinned, verified")
     t0 = time.perf_counter()
-    log(f"  card == CPU on MIXED_SESSION's traces, aux trace and quotient: {session_airs_card_vs_cpu(torch, dev)} "
+    log(f"  card == CPU on MIXED_SESSION's traces, aux trace and quotient: {session_airs_card_vs_cpu(dev)} "
         f"({time.perf_counter() - t0:.3f} s)")
     log_phase("phase 6a pinned sessions at TEST_PARAMS: card bytes == pinned bytes; keccak and EC AIRs "
               "card == CPU")
@@ -439,26 +489,22 @@ def session_phase(torch, kernels, dev: str, pinned) -> tuple:
                     if getattr(traces, f) is not None))
 
     log(f"  host launch cost before the session proofs: {BS._launch_us(torch):.2f} us a one-element add")
-    # the warm-up is the traced proof: spans synchronize at their edges, so
-    # a traced call is never a timed one
-    t0 = time.perf_counter()
-    with Recorder() as rec:
-        S.prove_deferred_state_dag(out.deferred_state, MIDEN_PARAMS, device=dev)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    drain_program_checks()
-    # one timed call: with phase 11 a second one would crowd the 1200 s limit
+    # one proof, traced, the first of its shape (eager): the spans' syncs cost
+    # this host-bound proof nothing measurable (an H100 80GB HBM3 host: 32.797 s
+    # traced, 33.4277 s untraced), and a second call would crowd the 1200 s limit
     torch.cuda.reset_peak_memory_stats()
     session_shapes = {name: {} for name in kernels}
     zero_counts(kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    session = S.prove_deferred_state_dag(out.deferred_state, MIDEN_PARAMS, device=dev)
+    with Recorder() as rec:
+        session = S.prove_deferred_state_dag(out.deferred_state, MIDEN_PARAMS, device=dev)
     torch.cuda.synchronize()
     session_s = time.perf_counter() - t0
     session_launches = {name: kern.launches for name, (kern, _, _) in kernels.items()}
     record_shapes(kernels, session_shapes)
     peak = torch.cuda.max_memory_allocated()
+    drain_program_checks()
     if tuple(session.root) != tuple(proof.deferred_root):
         raise AssertionError("the session root is not the main proof's deferred root")
     t0 = time.perf_counter()
@@ -479,18 +525,27 @@ def session_phase(torch, kernels, dev: str, pinned) -> tuple:
     airs = [type(a).__name__ for a in session_airs]
     log("  session AIRs and log heights: " + ", ".join(
         f"{a} {h}" for a, h in zip(airs, session.stark.log_heights)))
-    log("  spans (traced warm-up session proof, synchronized at span edges): " + "; ".join(
+    log("  spans (the traced session proof, synchronized at span edges): " + "; ".join(
         f"{k} {v[0]:.4f} s" for k, v in rec.totals.items()))
     for span_name in ("evaluate constraints", "aux trace of one AIR"):
         log(f"  {span_name}, per AIR: " + ", ".join(
             f"{air} {v[0]:.4f} s" for (name, air), v in rec.by_air.items() if name == span_name))
     log(f"  launches per session proof: {session_launches}")
     log_phase(f"phase 6b session of {len(claims)} claims at MIDEN_PARAMS: prove_deferred_state_dag "
-              f"{session_s:.4f} s (traced warm-up {warm_s:.3f} s; trace build "
-              f"{build_s:.3f} s of each), peak memory {peak / 2**30:.3f} GiB, proof "
+              f"{session_s:.4f} s (one traced call, the first of its shape; trace build "
+              f"{build_s:.3f} s), peak memory {peak / 2**30:.3f} GiB, proof "
               f"{len(proof_to_bytes(session.stark))} bytes, verify_deferred {verify_s:.3f} s; "
               f"verify_program(proof, deferred=session) accepts, tampered root rejected")
     return session_launches, session_shapes
+
+
+def graph_stats(plan) -> str:
+    """Each captured phase's graph: nodes, kernel nodes of the port, and the
+    seconds of its capture, node read and instantiation."""
+    return "; ".join(
+        f"{name} {st['nodes']} nodes ({st['launches']} kernel launches of the port), capture "
+        f"{st['capture_s']:.4f} s, node read {st['read_s']:.4f} s, instantiate {st['instantiate_s']:.4f} s"
+        for name, st in plan.phase_stats().items())
 
 
 def rescue_phase(torch, kernels, dev: str) -> dict:
@@ -498,19 +553,21 @@ def rescue_phase(torch, kernels, dev: str) -> dict:
     PcsParams, rpo256 and rpx256 (kernels R1 and R2 build every tree): (a)
     the fib program (repeat.10) at MIDEN_PARAMS on the card and on the CPU,
     proof bytes equal and verify_program accepting; (b) vm-fib-18-rpo256, the
-    program of phase 5b at MIDEN_PARAMS with hash_name="rpo256": a traced
-    warm-up (its spans) and one timed prove_program call, peak memory,
-    verified; (c) vm-fib-18-rpx256: one timed call, verified. Returns {"vm_rpo" | "vm_rpx": (launches, launch shapes)} of the
-    timed call of each."""
+    program of phase 5b at MIDEN_PARAMS with hash_name="rpo256", and (c)
+    vm-fib-18-rpx256, each on the default (fused) path: the warm-up (the
+    shape's first proof, eager; traced for rpo256, its spans printed), the
+    capture call and one replay, both timed and equal to the warm-up's
+    bytes, the replay's launches equal to the warm-up's and on the path,
+    each phase's graph, the eager and fused peak memory, verified. Returns
+    {"vm_rpo" | "vm_rpx": (launches, launch shapes)} of the replay of each."""
     from miden_tpu_torch.field import gl
-    from miden_tpu_torch.stark import MIDEN_PARAMS
+    from miden_tpu_torch.stark import MIDEN_PARAMS, fused
     from miden_tpu_torch.utils.tracing import Recorder
     from miden_tpu_torch.vm import assemble
     from miden_tpu_torch.vm.prove import prove_program, verify_program
 
     small, full = assemble(fib_program(VM_SMALL_REPS)), assemble(fib_program(VM_FULL_REPS))
     out = {}
-    # one timed call each (rpo256 after a traced warm-up): three would crowd the 1200 s limit
     for hash_name, kind, traced in (("rpo256", "vm_rpo", True), ("rpx256", "vm_rpx", False)):
         params = dataclasses.replace(MIDEN_PARAMS, hash_name=hash_name)
         _, on_card = prove_program(small, params=params, device=dev)
@@ -520,37 +577,65 @@ def rescue_phase(torch, kernels, dev: str) -> dict:
         verify_program(on_card, params=params)
         log(f"  {hash_name} fib repeat.{VM_SMALL_REPS}: card == CPU ({len(on_card.to_bytes())} bytes), "
             f"verified; CPU prove {cpu_s:.3f} s (in the CPU process)")
-        warm = ""
-        if traced:
-            t0 = time.perf_counter()
-            with Recorder() as rec:
-                prove_program(full, params=params, device=dev)
-            warm = f", after a traced warm-up of {time.perf_counter() - t0:.3f} s"
-            log("  spans (traced warm-up prove_program, synchronized at span edges): " + "; ".join(
-                f"{k} {v[0]:.4f} s" for k, v in rec.totals.items()))
+        # the warm-up: the shape's first proof, eager, its bytes the reference
         torch.cuda.reset_peak_memory_stats()
-        shapes = {name: {} for name in kernels}
         zero_counts(kernels)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        vm_out, proof = prove_program(full, params=params, device=dev)
+        with Recorder() if traced else contextlib.nullcontext() as rec:
+            _, warm = prove_program(full, params=params, device=dev)
         torch.cuda.synchronize()
-        prove_s = time.perf_counter() - t0
+        warm_s = time.perf_counter() - t0
+        eager_peak = torch.cuda.max_memory_allocated()
+        warm_launches = {name: kern.launches for name, (kern, _, _) in kernels.items()}
+        if traced:
+            log("  spans (traced warm-up prove_program, synchronized at span edges): " + "; ".join(
+                f"{k} {v[0]:.4f} s" for k, v in rec.totals.items()))
+        drain_program_checks()
+        # the capture call, then one replay
+        secs = []
+        for rep in range(2):
+            if rep == 0:
+                torch.cuda.reset_peak_memory_stats()
+            else:
+                zero_counts(kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vm_out, proof = prove_program(full, params=params, device=dev)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if proof.to_bytes() != warm.to_bytes():
+                raise AssertionError(f"vm-fib-18-{hash_name} call {rep} after the warm-up differs from its bytes")
+            if rep == 0:
+                fused_peak = torch.cuda.max_memory_allocated()
+                plan = fused.cached_plan()
+                if plan is None or not plan.captured:
+                    raise AssertionError(f"the second vm-fib-18-{hash_name} proof did not capture its phases")
+                graphs = graph_stats(plan)
+                del plan  # release() frees the graphs only where nothing else holds them
         launches = {name: kern.launches for name, (kern, _, _) in kernels.items()}
+        shapes = {name: {} for name in kernels}
         record_shapes(kernels, shapes)
-        peak = torch.cuda.max_memory_allocated()
+        if launches != warm_launches:
+            raise AssertionError(f"vm-fib-18-{hash_name}: a replay's launches {launches} != the warm-up's "
+                                 f"{warm_launches}")
         check_path(launches, hash_name, f"vm-fib-18-{hash_name}")
         t0 = time.perf_counter()
         verify_program(proof, params=params)
         verify_s = time.perf_counter() - t0
         if vm_out.stack[0] != fib_top(VM_FULL_REPS, gl.P):
             raise AssertionError(f"{hash_name}: VM program left {vm_out.stack[0]} on top of the stack")
-        log(f"  launches per vm-fib-18-{hash_name} proof: {launches}")
+        log(f"  launches per vm-fib-18-{hash_name} proof (a replay; == the eager warm-up's): {launches}")
+        log(f"  graphs: {graphs}")
         log_phase(f"phase 5c vm-fib-18-{hash_name} MIDEN_PARAMS: log heights {proof.stark.log_heights}; "
-                  f"prove_program {prove_s:.4f} s (one timed call{warm}), peak memory {peak / 2**30:.3f} GiB, "
-                  f"proof {len(proof.to_bytes())} bytes, verified in {verify_s:.3f} s, top of stack == fib mod p")
+                  f"prove_program: the warm-up {warm_s:.4f} s (eager{', traced' if traced else ''}), the "
+                  f"capture call {secs[0]:.4f} s, a replay of the phases' CUDA graphs {secs[1]:.4f} s, both == "
+                  f"the warm-up's bytes; peak memory eager {eager_peak / 2**30:.3f} GiB, fused "
+                  f"{fused_peak / 2**30:.3f} GiB (the capture call), proof {len(proof.to_bytes())} bytes, "
+                  f"verified in {verify_s:.3f} s, top of stack == fib mod p")
         out[kind] = (launches, shapes)
         drain_program_checks()
+    fused.release()
     return out
 
 
@@ -591,8 +676,8 @@ def preprocessed_phase(torch, dev: str) -> None:
 
 def entry_phase(torch, kernels, dev: str, vm_launches: dict, vm_bytes: bytes, small_cpu_bytes: bytes) -> None:
     """Phase 9: the user entry surfaces on the card. ``vm_launches`` and
-    ``vm_bytes``: the launches and proof bytes of phase 5b's first timed
-    prove_program; ``small_cpu_bytes``: phase 5a's CPU proof bytes."""
+    ``vm_bytes``: the launches of a replayed prove_program of phase 5b (equal
+    to its eager warm-up's) and its proof bytes; ``small_cpu_bytes``: phase 5a's CPU proof bytes."""
     import contextlib
     import gc
     import io
@@ -615,14 +700,41 @@ def entry_phase(torch, kernels, dev: str, vm_launches: dict, vm_bytes: bytes, sm
         fh.write(src)
     full = assemble(src)
 
+    # -- (b) the wire forms (before (a): (a)'s in-process proof is vm-fib-18's
+    # last before phase 8, which then only captures its phases) ----------
+    small_src = fib_program(VM_SMALL_REPS)
+    decoded = {
+        "MAST wire form": program_from_bytes(program_to_bytes(assemble(small_src))),
+        ".masp package": MastPackage.from_bytes(
+            assemble_program_package("vm-fib-small", small_src).to_bytes()).program(),
+    }
+    for what, prog in decoded.items():
+        _, proof = prove_program(prog, params=MIDEN_PARAMS, device=dev)
+        if proof.to_bytes() != small_cpu_bytes:
+            raise AssertionError(f"the program decoded from its {what} proves to other bytes")
+    log_phase(f"phase 9b fib repeat.{VM_SMALL_REPS} through the MAST wire form and a .masp package: each "
+              f"decoded program proved on the card == phase 5a's CPU bytes")
+
     # -- (a) the command line, in subprocesses ----------------------------
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])))
 
-    def run_cli(*args) -> tuple:
+    def run_cli(*calls) -> list:
+        """Each call's (CompletedProcess, seconds), the calls run together."""
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "miden_tpu_torch", *args], cwd=root, env=env,
-                              capture_output=True, text=True, timeout=600)
-        return proc, time.perf_counter() - t0
+        procs = [subprocess.Popen([sys.executable, "-m", "miden_tpu_torch", *args], cwd=root, env=env,
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for args in calls]
+        done = []
+        try:
+            for args, proc in zip(calls, procs):
+                stdout, stderr = proc.communicate(timeout=600)
+                done.append((subprocess.CompletedProcess(args, proc.returncode, stdout, stderr),
+                             time.perf_counter() - t0))
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        return done
 
     def expect(proc, rc: int, what: str) -> list:
         if proc.returncode != rc:
@@ -630,40 +742,39 @@ def entry_phase(torch, kernels, dev: str, vm_launches: dict, vm_bytes: bytes, sm
         return proc.stdout.splitlines()
 
     mast, proof_path = os.path.join(work, "prog.mast"), os.path.join(work, "proof.bin")
-    out, compile_s = run_cli("compile", masm, "-o", mast)
+    (out, compile_s), (ran, run_s) = run_cli(("compile", masm, "-o", mast), ("run", masm))
     printed_hash = expect(out, 0, "compile")[0]
     with open(mast, "rb") as fh:
         decoded = program_from_bytes(fh.read())
     if tuple(decoded.hash) != tuple(full.hash) or printed_hash != "program hash: " + " ".join(
             f"{v:016x}" for v in full.hash):
         raise AssertionError("compile -o: the written program does not decode to the program's digest")
-    out, run_s = run_cli("run", masm)
     want_top = fib_top(VM_FULL_REPS, gl.P)
-    if not expect(out, 0, "run")[-1].startswith(f"output stack: [{want_top}, "):
-        raise AssertionError(f"run printed {out.stdout!r}")
+    if not expect(ran, 0, "run")[-1].startswith(f"output stack: [{want_top}, "):
+        raise AssertionError(f"run printed {ran.stdout!r}")
     gc.collect()
     torch.cuda.empty_cache()
     held = torch.cuda.memory_reserved()
-    out, prove_s = run_cli("prove", masm, "-o", proof_path)
+    [(out, prove_s)] = run_cli(("prove", masm, "-o", proof_path))
     expect(out, 0, "prove")
     with open(proof_path, "rb") as fh:
         blob = fh.read()
     if blob != vm_bytes:
         raise AssertionError("the CLI's proof bytes differ from phase 5b's prove_program")
-    out, verify_s = run_cli("verify", proof_path)
-    expect(out, 0, "verify")
     flipped = bytearray(blob)
     flipped[8 + 32 + 32 + 16 * 8] ^= 1  # the low byte of the first stack output
     bad_path = os.path.join(work, "flipped.bin")
     with open(bad_path, "wb") as fh:
         fh.write(bytes(flipped))
-    out, _ = run_cli("verify", bad_path)
-    if not expect(out, 1, "verify of a flipped proof")[0].startswith("VERIFICATION FAILED"):
-        raise AssertionError(f"verify of a flipped proof printed {out.stdout!r}")
-    log(f"  CLI subprocesses: compile -o {compile_s:.3f} s, run {run_s:.3f} s, prove {prove_s:.3f} s "
-        f"(interpreter start, kernel library load and prove_program on the card; this process held "
-        f"{held / 2**30:.3f} GiB of the card), verify {verify_s:.3f} s; proof bytes == phase 5b's, verify "
-        f"exits 0, a flipped byte exits 1, the compiled program decodes to the program's digest")
+    (out, verify_s), (bad, _) = run_cli(("verify", proof_path), ("verify", bad_path))
+    expect(out, 0, "verify")
+    if not expect(bad, 1, "verify of a flipped proof")[0].startswith("VERIFICATION FAILED"):
+        raise AssertionError(f"verify of a flipped proof printed {bad.stdout!r}")
+    log(f"  CLI subprocesses: compile -o {compile_s:.3f} s and run {run_s:.3f} s side by side, prove "
+        f"{prove_s:.3f} s alone (interpreter start, kernel library load and prove_program on the card; this "
+        f"process held {held / 2**30:.3f} GiB of the card), verify {verify_s:.3f} s beside the flipped "
+        f"proof's; proof bytes == phase 5b's, verify exits 0, a flipped byte exits 1, the compiled program "
+        f"decodes to the program's digest")
     # the CLI's prove in this process, its launches counted
     zero_counts(kernels)
     t0 = time.perf_counter()
@@ -680,20 +791,6 @@ def entry_phase(torch, kernels, dev: str, vm_launches: dict, vm_bytes: bytes, sm
         f"{'equal to' if launches == vm_launches else 'NOT equal to'} phase 5b's")
     log_phase(f"phase 9a python -m miden_tpu_torch prove of VM fib repeat.{VM_FULL_REPS} on the card: "
               f"{prove_s:.3f} s in a subprocess, proof == phase 5b's bytes, verify accepts, flipped byte rejected")
-
-    # -- (b) the wire forms -----------------------------------------------
-    small_src = fib_program(VM_SMALL_REPS)
-    decoded = {
-        "MAST wire form": program_from_bytes(program_to_bytes(assemble(small_src))),
-        ".masp package": MastPackage.from_bytes(
-            assemble_program_package("vm-fib-small", small_src).to_bytes()).program(),
-    }
-    for what, prog in decoded.items():
-        _, proof = prove_program(prog, params=MIDEN_PARAMS, device=dev)
-        if proof.to_bytes() != small_cpu_bytes:
-            raise AssertionError(f"the program decoded from its {what} proves to other bytes")
-    log_phase(f"phase 9b fib repeat.{VM_SMALL_REPS} through the MAST wire form and a .masp package: each "
-              f"decoded program proved on the card == phase 5a's CPU bytes")
 
     # -- (c) pause/resume ---------------------------------------------------
     t0 = time.perf_counter()
@@ -782,31 +879,44 @@ def byte_hash_phase(torch, dev: str) -> None:
         del tree, flat  # so that the next hash's peak holds only its own tree
 
 
-def vm_aux_card_vs_cpu(trace, dev: str) -> str:
-    """The chiplets and Poseidon2 AIRs of a VM trace build their LogUp aux
-    traces on the card and on the CPU from the same seeded randomness: the
-    aux columns and aux values must be bit-equal."""
+def vm_aux(trace, device: str) -> tuple:
+    """The chiplets and Poseidon2 AIRs of a VM trace (``trace``: a dict of
+    its statement's fields and those two matrices) build their LogUp aux
+    traces on ``device`` from seeded randomness: [(AIR name, rows, aux,
+    aux values, seconds)], tensors on ``device``."""
     from miden_tpu_torch.field import gl
     from miden_tpu_torch.field import goldilocks as F
     from miden_tpu_torch.vm.prove import vm_statement
 
-    statement = vm_statement(trace.program_hash, trace.stack_inputs, trace.stack_outputs,
-                             trace.kernel_digests, trace.deferred_root)
+    statement = vm_statement(*(trace[k] for k in ("program_hash", "stack_inputs", "stack_outputs",
+                                                  "kernel_digests", "deferred_root")))
     rng = np.random.default_rng(18)
-    checked = []
-    for air, main in zip(statement.multi_air.airs[1:], (trace.chiplets, trace.poseidon)):
+    built = []
+    for air, main in zip(statement.multi_air.airs[1:], (trace["chiplets"], trace["poseidon"])):
         rand = rng.integers(0, gl.P, size=(air.num_randomness, 2), dtype=np.uint64)
-        built = []
-        for device in (dev, "cpu"):
-            t0 = time.perf_counter()
-            aux, vals = air.build_aux_trace(F.to_torch(main, device), statement.publics, statement.aux_inputs,
-                                            list(F.to_torch(rand, device)))
-            built.append((aux, vals, time.perf_counter() - t0))
-        (aux, vals, card_s), (aux_c, vals_c, cpu_s) = built
-        if max_abs_err(aux.reshape(-1), aux_c.reshape(-1)) or max_abs_err(vals.reshape(-1), vals_c.reshape(-1)):
-            raise AssertionError(f"{type(air).__name__}: the card's and the CPU's aux traces differ")
-        checked.append(f"{type(air).__name__} ({main.shape[0]} rows, aux {tuple(aux.shape)}; card {card_s:.3f} s, "
-                       f"CPU {cpu_s:.3f} s)")
+        t0 = time.perf_counter()
+        aux, vals = air.build_aux_trace(F.to_torch(main, device), statement.publics, statement.aux_inputs,
+                                        list(F.to_torch(rand, device)))
+        built.append((type(air).__name__, main.shape[0], aux, vals, time.perf_counter() - t0))
+    return built
+
+
+def vm_aux_card_vs_cpu(dev: str) -> str:
+    """stdlib-blake3-18's chiplets and Poseidon2 AIRs build their LogUp aux
+    traces on the card and on the CPU from the same seeded randomness: the
+    aux columns and aux values must be bit-equal. The CPU process's job
+    "blake3_aux" executes the program and makes the CPU half; the card half
+    runs on its trace."""
+    from miden_tpu_torch.field import goldilocks as F
+
+    (trace, want), _ = CPU_HALVES.get("blake3_aux")
+    checked = []
+    for (name, rows, aux, vals, card_s), (_, _, aux_c, vals_c, cpu_s) in zip(vm_aux(trace, dev), want):
+        if not (np.array_equal(F.to_numpy(aux).reshape(-1), aux_c.reshape(-1))
+                and np.array_equal(F.to_numpy(vals).reshape(-1), vals_c.reshape(-1))):
+            raise AssertionError(f"{name}: the card's and the CPU's aux traces differ")
+        checked.append(f"{name} ({rows} rows, aux {tuple(aux.shape)}; card {card_s:.3f} s, "
+                       f"CPU {cpu_s:.3f} s in the CPU process)")
     return ", ".join(checked)
 
 
@@ -830,7 +940,6 @@ def stdlib_phase(torch, kernels, dev: str) -> tuple:
     from miden_tpu_torch.utils.tracing import Recorder
     from miden_tpu_torch.vm import native_trace
     from miden_tpu_torch.vm.prove import prove_program, verify_program
-    from miden_tpu_torch.vm.trace import execute_and_trace
 
     handlers = stdlib_event_handlers()
 
@@ -865,7 +974,10 @@ def stdlib_phase(torch, kernels, dev: str) -> tuple:
     native_trace.RUNS.update({k: 0 for k in native_trace.RUNS})
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    b3_out, proof = prove_program(prog, inputs, params=MIDEN_PARAMS, event_handlers=handlers, device=dev)
+    # fused=False: the second proof of this shape would pay the capture of
+    # its phases, which the 1200 s limit cannot take for a one-shot timing
+    b3_out, proof = prove_program(prog, inputs, params=MIDEN_PARAMS, event_handlers=handlers, device=dev,
+                                  fused=False)
     torch.cuda.synchronize()
     b3_s = time.perf_counter() - t0
     launches = {name: kern.launches for name, (kern, _, _) in kernels.items()}
@@ -880,8 +992,7 @@ def stdlib_phase(torch, kernels, dev: str) -> tuple:
     if b3_out.clk != B.BLAKE3_CYCLES or proof.stark.log_heights != B.BLAKE3_LOG_HEIGHTS:
         raise AssertionError(f"stdlib-blake3-18 ran {b3_out.clk} cycles, log heights {proof.stark.log_heights}")
     check_path(launches, "poseidon2", "stdlib-blake3-18")
-    _, b3_trace = execute_and_trace(prog, inputs, event_handlers=handlers)
-    log(f"  card == CPU LogUp aux traces at full height: {vm_aux_card_vs_cpu(b3_trace, dev)}")
+    log(f"  card == CPU LogUp aux traces at full height: {vm_aux_card_vs_cpu(dev)}")
     trace_s = rec.totals["execute and trace"][0]
     log("  spans (traced warm-up prove_program, synchronized at span edges): " + "; ".join(
         f"{k} {v[0]:.4f} s" for k, v in rec.totals.items()))
@@ -1069,10 +1180,11 @@ SAMPLE_STATES = 1 << 14
 PLAIN_RATE_STATES = 1 << 20
 
 
-def dist_phase(torch, kernels, full, vm_bytes: bytes, vm_med: float, vm_peak: int, small_bytes: bytes) -> tuple:
+def dist_phase(torch, kernels, full, vm_bytes: bytes, eager_s: float, vm_peak: int, small_bytes: bytes) -> tuple:
     """Phase 12: multi-device proving. (a) ``full`` (5b's program) under an
-    NCCL mesh of one rank, against 5b's bytes, median seconds ``vm_med`` and
-    peak ``vm_peak``; (b), (c) on ``bench_dist.RANKS`` gloo ranks sharing the card,
+    NCCL mesh of one rank (eager: no fused phases under a mesh), against
+    5b's bytes, the seconds ``eager_s`` of 5e's eager call of that shape
+    and 5b's eager peak ``vm_peak``; (b), (c) on ``bench_dist.RANKS`` gloo ranks sharing the card,
     (c) against ``small_bytes`` (5a's CPU proof). Returns the launches and
     shapes of (a)–(c) together, for phase 7."""
     from miden_tpu_torch import bench_dist
@@ -1084,8 +1196,8 @@ def dist_phase(torch, kernels, full, vm_bytes: bytes, vm_med: float, vm_peak: in
     check_path(a["launches"], "poseidon2", "phase 12a")
     log(f"  12a launches: {a['launches']}")
     log_phase(f"phase 12a vm-fib-18 under use_mesh(make_mesh('cuda')), {a['backend']} world size {a['world']}: "
-              f"prove_program {a['seconds']:.4f} s, peak {a['peak_gib']:.3f} GiB (phase 5b without a mesh: median "
-              f"{vm_med:.4f} s, peak {vm_peak / 2**30:.3f} GiB); bytes == phase 5b's; {a['traffic']['gather']} "
+              f"prove_program {a['seconds']:.4f} s, peak {a['peak_gib']:.3f} GiB (without a mesh, eager: 5e's "
+              f"{eager_s:.4f} s, 5b's peak {vm_peak / 2**30:.3f} GiB); bytes == phase 5b's; {a['traffic']['gather']} "
               f"bytes gathered")
 
     t0 = time.perf_counter()
@@ -1197,11 +1309,13 @@ class ProgramChecks:
 
     def install(self) -> None:
         from miden_tpu_torch.stark import prover
+        from miden_tpu_torch.utils import cuda
 
         real = prover.evaluate_quotient
 
         def watched(air, domain, main_lde, aux_lde, log_d, *rest):
-            if main_lde.is_cuda and prover.uses_program(air, domain.trace_height, log_d):
+            # eager runs only: a capture runs nothing, and its tensors live in the graphs' pool
+            if main_lde.is_cuda and not cuda.capturing() and prover.uses_program(air, domain.trace_height, log_d):
                 key = (type(air).__name__, domain.trace_height << log_d)
                 if key not in self.held and all(k != key for k, _, _ in self.pending):
                     self.pending.append((key, (air, domain, main_lde, aux_lde, log_d, *rest), self.eager))
@@ -1487,6 +1601,29 @@ def _cpu_merkle() -> tuple:
     return tree.root, list(tree.inner_nodes())
 
 
+def _cpu_session_airs() -> list:
+    from miden_tpu_torch.field import goldilocks as F
+
+    return [(name, log_n, [F.to_numpy(t) for t in outs]) for name, log_n, outs in session_air_outputs("cpu")]
+
+
+def _cpu_blake3_aux() -> tuple:
+    """stdlib-blake3-18's trace (its statement's fields, the chiplets and
+    Poseidon2 matrices) and their aux traces on the CPU."""
+    from miden_tpu_torch import bench_stdlib as B
+    from miden_tpu_torch.stdlib import assemble_with_stdlib, stdlib_event_handlers
+    from miden_tpu_torch.vm.trace import execute_and_trace
+
+    prog = assemble_with_stdlib(B.blake3_chain_program(B.BLAKE3_REPS))
+    _, tr = execute_and_trace(prog, B.blake3_inputs(), event_handlers=stdlib_event_handlers())
+    from miden_tpu_torch.field import goldilocks as F
+
+    trace = {k: getattr(tr, k) for k in ("program_hash", "stack_inputs", "stack_outputs", "kernel_digests",
+                                         "deferred_root", "chiplets", "poseidon")}
+    return trace, [(name, rows, F.to_numpy(aux), F.to_numpy(vals), secs)
+                   for name, rows, aux, vals, secs in vm_aux(trace, "cpu")]
+
+
 def _cpu_fri_query() -> bytes:
     """fri_query_program made from the CPU's own fib repeat.40 proof at
     TEST_PARAMS, proved on the CPU."""
@@ -1509,7 +1646,9 @@ CPU_JOBS = {
     "vm_fib_rpo256": (_cpu_vm_fib, ("rpo256",)),  # phase 5c
     "vm_fib_rpx256": (_cpu_vm_fib, ("rpx256",)),
     "preprocessed": (_cpu_preprocessed, ()),  # phase 5d
+    "session_airs": (_cpu_session_airs, ()),  # phase 6a
     "u64": (_cpu_u64, ()),  # phase 10a
+    "blake3_aux": (_cpu_blake3_aux, ()),  # phase 10b
     "merkle": (_cpu_merkle, ()),  # phase 10d
     "fri_query": (_cpu_fri_query, ()),  # phase 11d
 }
@@ -1594,7 +1733,7 @@ def card_phases(torch, kernels, card: str) -> int:
     from miden_tpu_torch.field import gl
     from miden_tpu_torch.hash import poseidon2, rescue, rescue_host
     from miden_tpu_torch.ntt import ntt
-    from miden_tpu_torch.stark import MIDEN_PARAMS, prove, verify
+    from miden_tpu_torch.stark import MIDEN_PARAMS, fused, prove, verify
     from miden_tpu_torch.stark.proof_io import proof_to_bytes
     from miden_tpu_torch.transcript.challenger import DuplexChallenger
     from miden_tpu_torch.utils.tracing import Recorder
@@ -1713,9 +1852,11 @@ def card_phases(torch, kernels, card: str) -> int:
     shapes = {name: {} for name in kernels}  # shaped-18 proof: shape -> launches
     vm_shapes = {name: {} for name in kernels}  # VM proof (phase 5b)
 
+    # eager (fused=False), as before the fused path: its timings and spans stay
+    # comparable, and its shape's capture would crowd the 1200 s limit
     st, tr = miden_shaped_statement(FULL_LOG, device=dev)
     t0 = time.perf_counter()
-    prove(MIDEN_PARAMS, st, tr, DuplexChallenger(SEED), device=dev)
+    prove(MIDEN_PARAMS, st, tr, DuplexChallenger(SEED), device=dev, fused=False)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     # one timed prove: the VM proof of phase 5 is the main path now, and
@@ -1726,7 +1867,7 @@ def card_phases(torch, kernels, card: str) -> int:
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    out = prove(MIDEN_PARAMS, st, tr, DuplexChallenger(SEED), device=dev)
+    out = prove(MIDEN_PARAMS, st, tr, DuplexChallenger(SEED), device=dev, fused=False)
     stop.record()
     torch.cuda.synchronize()
     prove_s = start.elapsed_time(stop) / 1e3
@@ -1734,7 +1875,7 @@ def card_phases(torch, kernels, card: str) -> int:
     record_shapes(kernels, shapes)
     peak = torch.cuda.max_memory_allocated()
     with Recorder() as rec:
-        prove(MIDEN_PARAMS, st, tr, DuplexChallenger(SEED), device=dev)
+        prove(MIDEN_PARAMS, st, tr, DuplexChallenger(SEED), device=dev, fused=False)
     t0 = time.perf_counter()
     digest = verify(MIDEN_PARAMS, st, out.proof, DuplexChallenger(SEED))
     verify_s = time.perf_counter() - t0
@@ -1748,7 +1889,7 @@ def card_phases(torch, kernels, card: str) -> int:
     log("  poseidon2_permute launches per proof by n: " + ", ".join(
         f"{key[0]}: {count}" for key, count in sorted(shapes["poseidon2_permute"].items())
     ))
-    log_phase(f"phase 4 full proof 2^{FULL_LOG} MIDEN_PARAMS: {prove_s:.4f} s (one timed prove; "
+    log_phase(f"phase 4 full proof 2^{FULL_LOG} MIDEN_PARAMS, eager: {prove_s:.4f} s (one timed prove; "
         f"warm-up {warm_s:.3f} s), "
         f"peak memory {peak / 2**30:.3f} GiB, proof {len(proof_to_bytes(out.proof))} bytes, "
         f"verified in {verify_s:.3f} s")
@@ -1768,36 +1909,61 @@ def card_phases(torch, kernels, card: str) -> int:
         f"CPU prove {cpu_s:.3f} s (in the CPU process)")
 
     full = assemble(fib_program(VM_FULL_REPS))
+    # the warm-up: the first proof of vm-fib-18's shape runs the fused phases
+    # eagerly, and its bytes are the reference of every later call
+    fused.release()
     PROGRAM_CHECKS.eager = True  # the first vm-fib-18 proof: Q1 == the eager evaluator too
+    zero_counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    prove_program(full, params=MIDEN_PARAMS, device=dev)
+    _, warm_proof = prove_program(full, params=MIDEN_PARAMS, device=dev)
     torch.cuda.synchronize()
     vm_warm_s = time.perf_counter() - t0
+    vm_peak = torch.cuda.max_memory_allocated()  # the eager peak
+    warm_launches = {name: kern.launches for name, (kern, _, _) in kernels.items()}
+    vm_bytes = warm_proof.to_bytes()
     PROGRAM_CHECKS.eager = False
     drain_program_checks()
-    torch.cuda.reset_peak_memory_stats()
+    # rep 0 captures the five phases into CUDA graphs and replays them; reps
+    # 1-3 replay them (the median), rep 1's launches counted
     vm_times, vm_out, vm_proof = [], None, None
-    for rep in range(3):
+    for rep in range(4):
         if rep == 0:
+            torch.cuda.reset_peak_memory_stats()
+        if rep == 1:
             zero_counts(kernels)
             native_trace.RUNS.update({k: 0 for k in native_trace.RUNS})
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         vm_out, vm_proof = prove_program(full, params=MIDEN_PARAMS, device=dev)
         torch.cuda.synchronize()
-        vm_times.append(time.perf_counter() - t0)
+        secs = time.perf_counter() - t0
+        if vm_proof.to_bytes() != vm_bytes:
+            raise AssertionError(f"vm-fib-18 call {rep} after the warm-up differs from the warm-up's bytes")
         if rep == 0:
+            capture_s, fused_peak = secs, torch.cuda.max_memory_allocated()
+            plan = fused.cached_plan()
+            if plan is None or not plan.captured:
+                raise AssertionError("the second vm-fib-18 proof did not capture its phases")
+            phase_stats, vm_key = graph_stats(plan), plan.key
+            continue
+        vm_times.append(secs)
+        if rep == 1:
             vm_launches = {name: kern.launches for name, (kern, _, _) in kernels.items()}
             record_shapes(kernels, vm_shapes)
             native_runs = dict(native_trace.RUNS)
-    vm_peak = torch.cuda.max_memory_allocated()
-    vm_bytes = vm_proof.to_bytes()
+    if vm_launches != warm_launches:
+        raise AssertionError(f"a replayed proof's launches {vm_launches} != the eager warm-up's {warm_launches}")
     trace_times = []
     for _ in range(3):
         t0 = time.perf_counter()
         _, vm_trace = execute_and_trace(full)
         trace_times.append(time.perf_counter() - t0)
+    # the traced call is eager (fused=False): its per-stage spans compare with
+    # earlier runs. A second traced call replays the graphs: one span a phase
     with Recorder() as vm_rec:
+        prove_program(full, params=MIDEN_PARAMS, device=dev, fused=False)
+    with Recorder() as phase_rec:
         prove_program(full, params=MIDEN_PARAMS, device=dev)
     t0 = time.perf_counter()
     verify_program(vm_proof, params=MIDEN_PARAMS)
@@ -1811,22 +1977,63 @@ def card_phases(torch, kernels, card: str) -> int:
     if native_runs["block"] == 0 or c_share < 0.99:
         raise AssertionError(f"the VM trace did not come from the C trace generator: {native_runs}")
     med, med_trace = statistics.median(vm_times), statistics.median(trace_times)
-    log("  spans (traced prove_program, synchronized at span edges): " + "; ".join(
+    log("  spans (traced eager prove_program, synchronized at span edges): " + "; ".join(
         f"{k} {v[0]:.4f} s" for k, v in vm_rec.totals.items()
     ))
     log("  evaluate constraints, per AIR: " + ", ".join(
         f"{air} {v[0]:.4f} s" for (name, air), v in vm_rec.by_air.items() if name == "evaluate constraints"))
-    log(f"  launches per VM proof: {vm_launches}")
+    log("  spans (traced replayed prove_program): " + "; ".join(
+        f"{k} {v[0]:.4f} s" for k, v in phase_rec.totals.items()))
+    log(f"  launches per VM proof (a replay; == the eager warm-up's): {vm_launches}")
     log(f"  host load average after the timed calls: {os.getloadavg()[0]:.2f} over {os.cpu_count()} CPUs")
     log(f"  C trace generator: {native_runs['block']} blocks, {native_runs['rows']} of "
         f"{vm_trace.num_real_rows} real core rows ({100 * c_share:.3f} %)")
+    log(f"  graphs: {phase_stats}")
     log_phase(f"phase 5b VM fib repeat.{VM_FULL_REPS} MIDEN_PARAMS: log heights {vm_proof.stark.log_heights} "
-        f"(core, chiplets, poseidon); prove_program median {med:.4f} s (runs "
-        f"{', '.join(f'{t:.4f}' for t in vm_times)}; warm-up {vm_warm_s:.3f} s), execute_and_trace "
+        f"(core, chiplets, poseidon); prove_program median {med:.4f} s of three replays of the phases' "
+        f"CUDA graphs (runs {', '.join(f'{t:.4f}' for t in vm_times)}; the capture call {capture_s:.4f} s, "
+        f"the eager warm-up {vm_warm_s:.3f} s), execute_and_trace "
         f"median {med_trace:.4f} s ({100 * med_trace / med:.1f} % of the call; runs "
-        f"{', '.join(f'{t:.4f}' for t in trace_times)}), peak memory {vm_peak / 2**30:.3f} GiB, "
-        f"proof {len(vm_proof.to_bytes())} bytes, verified in {vm_verify_s:.3f} s, top of stack "
-        f"{vm_out.stack[0]} == fib mod p")
+        f"{', '.join(f'{t:.4f}' for t in trace_times)}), peak memory eager {vm_peak / 2**30:.3f} GiB "
+        f"(the warm-up), fused {fused_peak / 2**30:.3f} GiB (the capture call), proof {len(vm_bytes)} bytes, every call == the warm-up's bytes, verified in "
+        f"{vm_verify_s:.3f} s, top of stack {vm_out.stack[0]} == fib mod p")
+
+    # -- 5e. a second program of the same shape through 5b's graphs -------------
+    other = assemble(fib_program(VM_OTHER_REPS))
+    t0 = time.perf_counter()
+    _, other_eager = prove_program(other, VM_OTHER_INPUTS, params=MIDEN_PARAMS, device=dev, fused=False)
+    torch.cuda.synchronize()
+    other_eager_s = time.perf_counter() - t0
+    drain_program_checks()
+    calls = plan.calls
+    t0 = time.perf_counter()
+    other_out, other_proof = prove_program(other, VM_OTHER_INPUTS, params=MIDEN_PARAMS, device=dev)
+    torch.cuda.synchronize()
+    other_s = time.perf_counter() - t0
+    if fused.cached_plan() is not plan or plan.calls != calls + 1:
+        raise AssertionError("phase 5e: the second program did not replay phase 5b's graphs")
+    if other_proof.stark.log_heights != vm_proof.stark.log_heights:
+        raise AssertionError(f"phase 5e: log heights {other_proof.stark.log_heights}")
+    if other_proof.to_bytes() != other_eager.to_bytes():
+        raise AssertionError("phase 5e: the replayed proof differs from the program's eager proof")
+    if other_proof.to_bytes() == vm_bytes or other_proof.program_hash == vm_proof.program_hash:
+        raise AssertionError("phase 5e: the second program proved to the first program's claim")
+    verify_program(other_proof, params=MIDEN_PARAMS)
+    if other_out.stack[0] != fib_top(VM_OTHER_REPS, gl.P):
+        raise AssertionError(f"phase 5e: the program left {other_out.stack[0]} on top of the stack")
+    # what the kept graphs held between proofs: their outputs and static
+    # inputs (allocated) within their pool (reserved), freed by release()
+    torch.cuda.empty_cache()
+    alloc, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    del plan
+    fused.release()
+    held_gib = (alloc - torch.cuda.memory_allocated()) / 2**30
+    pool_gib = (reserved - torch.cuda.memory_reserved()) / 2**30
+    log_phase(f"phase 5e VM fib repeat.{VM_OTHER_REPS} with stack inputs {VM_OTHER_INPUTS} MIDEN_PARAMS: "
+              f"log heights {other_proof.stark.log_heights}, another program hash; replayed through phase "
+              f"5b's graphs in {other_s:.4f} s == its eager proof (fused=False: {other_eager_s:.4f} s, "
+              f"{other_eager_s / other_s:.2f}x the replay), verified; 5b's graphs held {held_gib:.3f} GiB "
+              f"allocated in {pool_gib:.3f} GiB reserved between proofs, freed by fused.release()")
 
     # -- 5c, 5d: the other commitment hashes; preprocessed columns --------------
     rescue_proofs = rescue_phase(torch, kernels, dev)
@@ -1844,7 +2051,7 @@ def card_phases(torch, kernels, card: str) -> int:
     recursion_proof = recursion_phase(torch, kernels, dev, vm_proof)
 
     # -- 12. multi-device: NCCL at world size 1, gloo ranks sharing the card -----
-    dist_proof = dist_phase(torch, kernels, full, vm_bytes, med, vm_peak, small_cpu_bytes)
+    dist_proof = dist_phase(torch, kernels, full, vm_bytes, other_eager_s, vm_peak, small_cpu_bytes)
 
     # -- 7. kernels vs plain, and timings, at the proofs' shapes --------------
     rows = kernel_rows(torch, kernels, {
@@ -1861,8 +2068,28 @@ def card_phases(torch, kernels, card: str) -> int:
     # the profiler runs last: after it the host's cost per launch stays up
     # (on an H100 80GB HBM3 host, 8.19 -> 13.59 us a one-element add) and
     # the session proof is 25-40 % slower (python3 -m miden_tpu_torch.bench_session)
-    vm_busy = device_busy(torch, lambda: prove_program(full, params=MIDEN_PARAMS, device=dev))
-    log_phase(f"phase 8 profiled prove_program of VM fib repeat.{VM_FULL_REPS}: {vm_busy}")
+    # a replayed call: other shapes were proved since 5b, so this shape's
+    # capture comes first (and its warm-up, unless phase 9a's in-process
+    # proof was the last proof)
+    for _ in range(2):
+        plan = fused.cached_plan()
+        if plan is not None and plan.key == vm_key and plan.captured:
+            break
+        prove_program(full, params=MIDEN_PARAMS, device=dev)
+    plan = fused.cached_plan()
+    if plan is None or plan.key != vm_key or not plan.captured:
+        raise AssertionError("phase 8: vm-fib-18's phases were not captured")
+    del plan
+    vm_busy, traced = device_busy(torch, lambda: prove_program(full, params=MIDEN_PARAMS, device=dev))
+    # the launches the profiler saw on the card during the replay, against
+    # the eager warm-up's counts of phase 5b
+    traced = {name: traced.get(kern.symbol, 0) for name, (kern, _, _) in kernels.items()}
+    if traced != warm_launches:
+        raise AssertionError(f"phase 8: the profiled replay ran the port's kernels {traced} times, "
+                             f"the eager warm-up {warm_launches}")
+    log(f"  the port's kernels among the profiled replay's device events (== the eager warm-up's "
+        f"launches): {traced}")
+    log_phase(f"phase 8 profiled replayed prove_program of VM fib repeat.{VM_FULL_REPS}: {vm_busy}")
     log(json.dumps({"kernels": rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -159,8 +159,8 @@ def main(argv=None) -> int:
     program = assemble(FIB_18)
     mul_rate = int32_mul_rate()
 
-    def prove():
-        return prove_program(program, params=MIDEN_PARAMS, device="cuda")[1]
+    def prove():  # eager: the spans and the captured inputs are those of each stage
+        return prove_program(program, params=MIDEN_PARAMS, device="cuda", fused=False)[1]
 
     prove()  # builds the kernels, warms the allocator
     calls = capture_quotient_inputs(prove)

@@ -237,9 +237,10 @@ def main() -> int:
     for rep in range(2):
         session(f"C{rep} untraced, after a traced call")
     fib = assemble("begin push.0 push.1 repeat.84000 swap dup.1 add end swap drop swap drop end")
-    prove_program(fib, params=MIDEN_PARAMS, device="cuda")
+    # eager (fused=False): the launches the profiler sees are the host's
+    prove_program(fib, params=MIDEN_PARAMS, device="cuda", fused=False)
     with profile(activities=[ProfilerActivity.CUDA]):
-        prove_program(fib, params=MIDEN_PARAMS, device="cuda")
+        prove_program(fib, params=MIDEN_PARAMS, device="cuda", fused=False)
         torch.cuda.synchronize()
     print(f"host launch cost after the profiler: {_launch_us(torch):.2f} us", flush=True)
     for rep in range(2):

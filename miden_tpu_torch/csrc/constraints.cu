@@ -237,15 +237,23 @@ __global__ void __launch_bounds__(kMaxBlock)
 }
 
 // The kernel of K points a thread, with its dynamic shared memory allowed.
+// The allowance only grows, and is set only where a launch needs more than
+// any before it: a launch that a CUDA graph captures after the same launch
+// ran once makes no call beside the launch.
 cudaError_t kernel_for(int k, size_t smem, const void** fn) {
+  static size_t allowed[3] = {48 * 1024, 48 * 1024, 48 * 1024};
+  int slot = 0;
   switch (k) {
-    case 1: *fn = (const void*)constraints_eval_kernel<1>; break;
-    case 2: *fn = (const void*)constraints_eval_kernel<2>; break;
-    case 4: *fn = (const void*)constraints_eval_kernel<4>; break;
+    case 1: *fn = (const void*)constraints_eval_kernel<1>; slot = 0; break;
+    case 2: *fn = (const void*)constraints_eval_kernel<2>; slot = 1; break;
+    case 4: *fn = (const void*)constraints_eval_kernel<4>; slot = 2; break;
     default: return cudaErrorInvalidValue;
   }
-  if (smem > 48 * 1024)
-    return cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (smem > allowed[slot]) {
+    cudaError_t err = cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    allowed[slot] = smem;
+  }
   return cudaSuccess;
 }
 

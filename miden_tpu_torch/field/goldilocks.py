@@ -26,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.cuda import capturing
 from . import gl
 
 I64 = torch.int64
@@ -46,9 +47,39 @@ def as_i64(v: int) -> int:
 
 
 def to_torch(values, device="cuda") -> torch.Tensor:
-    """numpy u64 (or anything ``np.asarray`` takes) → int64 tensor, same bits."""
+    """numpy u64 (or anything ``np.asarray`` takes) → int64 tensor, same bits.
+    Raises inside a CUDA-graph capture, which cannot take a host upload."""
+    if torch.device(device).type == "cuda" and capturing():
+        raise RuntimeError(
+            "host upload inside a CUDA graph capture: pass the values as a static "
+            "input of the graph, or make a constant table with table() before the capture"
+        )
     arr = np.ascontiguousarray(np.asarray(values, dtype=np.uint64))
     return torch.from_numpy(arr.view(np.int64).copy()).to(device)
+
+
+_TABLES: dict = {}
+
+
+def table(values, device="cuda") -> torch.Tensor:
+    """A constant table that depends on the proof's shape alone (coset
+    factors, periodic patterns, a program's constants) on ``device``,
+    uploaded at its first use and kept until :func:`clear_tables`: every
+    later call returns the same tensor, also inside a CUDA-graph capture.
+    The tables are short (a pattern's period, a quotient degree, a
+    constraint program's constants), so their values are their key.
+    Callers must not write to them."""
+    arr = np.ascontiguousarray(np.asarray(values, dtype=np.uint64))
+    key = (arr.shape, arr.tobytes(), str(device))
+    t = _TABLES.get(key)
+    if t is None:
+        t = _TABLES[key] = to_torch(arr, device)
+    return t
+
+
+def clear_tables() -> None:
+    """Forget the constant tables (the fused prover's ``release``)."""
+    _TABLES.clear()
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

@@ -76,7 +76,7 @@ def permute_plain(state: torch.Tensor) -> torch.Tensor:
 
 
 #: K3 (replaces miden_tpu/hash/poseidon2_pallas.py `permute_pallas`)
-POSEIDON2 = Sponge("poseidon2", "poseidon2", permute_plain)
+POSEIDON2 = Sponge("poseidon2", "poseidon2", "Poseidon2", permute_plain)
 PERMUTE_KERNEL = POSEIDON2.PERMUTE_KERNEL
 ABSORB_KERNEL = POSEIDON2.ABSORB_KERNEL
 COMPRESS_KERNEL = POSEIDON2.COMPRESS_KERNEL

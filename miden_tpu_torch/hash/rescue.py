@@ -141,9 +141,9 @@ def rpx_permute_plain(state: torch.Tensor) -> torch.Tensor:
 
 
 #: R1, RPO-256 (miden_tpu computes it in XLA: miden_tpu/hash/rescue.py `rpo_permute`)
-RPO = Sponge("rpo", "rescue", rpo_permute_plain)
+RPO = Sponge("rpo", "rescue", "Rpo", rpo_permute_plain)
 #: R2, RPX-256 (miden_tpu/hash/rescue.py `rpx_permute`)
-RPX = Sponge("rpx", "rescue", rpx_permute_plain)
+RPX = Sponge("rpx", "rescue", "Rpx", rpx_permute_plain)
 
 rpo_permute = RPO.permute
 rpx_permute = RPX.permute

@@ -30,21 +30,25 @@ RATE = 8
 class Sponge:
     """One permutation's entries. ``lib`` is the kernel library
     (``csrc/<lib>.cu``), whose launchers are ``<name>_permute``,
-    ``<name>_absorb_rows`` and ``<name>_compress_rows``; ``permute_plain``
-    is the plain torch permutation on ``(12, n)`` states (any device)."""
+    ``<name>_absorb_rows`` and ``<name>_compress_rows``, launching the
+    kernels of ``csrc/sponge_rows.cuh`` over the permutation ``perm`` (the
+    struct's name); ``permute_plain`` is the plain torch permutation on
+    ``(12, n)`` states (any device)."""
 
-    def __init__(self, name: str, lib: str, permute_plain):
+    def __init__(self, name: str, lib: str, perm: str, permute_plain):
         self.name = name
         self.permute_plain = permute_plain
-        self.PERMUTE_KERNEL = cuda.Kernel(lib, f"{name}_permute", [cuda.P, cuda.P, cuda.I64, cuda.P])
+        self.PERMUTE_KERNEL = cuda.Kernel(
+            lib, f"{name}_permute", [cuda.P, cuda.P, cuda.I64, cuda.P], "permute_kernel", perm
+        )
         #: the leaf sponge over a row-major matrix (one launch per committed matrix)
         self.ABSORB_KERNEL = cuda.Kernel(
             lib, f"{name}_absorb_rows",
-            [cuda.P, cuda.P, cuda.P, cuda.I64, cuda.I32, cuda.I64, cuda.P],
+            [cuda.P, cuda.P, cuda.P, cuda.I64, cuda.I32, cuda.I64, cuda.P], "absorb_rows_kernel", perm,
         )
         #: one Merkle layer over row-major digests
         self.COMPRESS_KERNEL = cuda.Kernel(
-            lib, f"{name}_compress_rows", [cuda.P, cuda.P, cuda.I64, cuda.P]
+            lib, f"{name}_compress_rows", [cuda.P, cuda.P, cuda.I64, cuda.P], "compress_rows_kernel", perm
         )
 
     # -- permute ---------------------------------------------------------------

@@ -37,13 +37,13 @@ MAX_LOG_SINGLE = 12  # largest sub-transform K1 does in one launch
 #: kernel K1 (replaces miden_tpu/ntt/ntt_pallas.py `_col_transform`)
 COL_KERNEL = cuda.Kernel(
     "ntt", "ntt_col_transform",
-    [cuda.P, cuda.P, cuda.P, cuda.I32, cuda.I64, cuda.I32, cuda.P],
+    [cuda.P, cuda.P, cuda.P, cuda.I32, cuda.I64, cuda.I32, cuda.P], "col_transform_kernel",
 )
 #: kernel K2 (the four-step twiddle multiply + transposes of
 #: miden_tpu/ntt/ntt_pallas.py `dft_dif` / `dft_dit`)
 TRANSPOSE_KERNEL = cuda.Kernel(
     "ntt", "ntt_transpose_twiddle",
-    [cuda.P, cuda.P, cuda.P, cuda.I64, cuda.I64, cuda.I32, cuda.I32, cuda.P],
+    [cuda.P, cuda.P, cuda.P, cuda.I64, cuda.I64, cuda.I32, cuda.I32, cuda.P], "transpose_twiddle_kernel",
 )
 
 _STAGE_TW: dict = {}  # (log_n, inverse, device) -> (n − 1,) compact stage twiddles
@@ -76,7 +76,7 @@ def stage_twiddles(log_n: int, inverse: bool, device) -> torch.Tensor:
     return _STAGE_TW[key]
 
 
-def _bitrev_index(n: int, device) -> torch.Tensor:
+def bitrev_index(n: int, device) -> torch.Tensor:
     key = (n, str(device))
     if key not in _BITREV:
         log_n = _log2(n)
@@ -93,7 +93,7 @@ def bitrev_perm(x: torch.Tensor) -> torch.Tensor:
     n = x.shape[0]
     if n <= 2:
         return x
-    return x.index_select(0, _bitrev_index(n, x.device))
+    return x.index_select(0, bitrev_index(n, x.device))
 
 
 def shift_powers(shift: int, n: int, bitrev: bool, device) -> torch.Tensor:

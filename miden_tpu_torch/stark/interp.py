@@ -343,7 +343,7 @@ def program_inputs(
     nd = main.shape[0]
     assert nd & (nd - 1) == 0, "the quotient domain is a power of two"
     prog = get_program(air, int(publics.shape[0]), int(randomness.shape[0]), int(aux_values.shape[0]))
-    consts = F.to_torch(np.asarray(prog.const_values, dtype=np.uint64), main.device)
+    consts = F.table(prog.const_values, main.device)
     scal = torch.cat([publics.reshape(-1), randomness.reshape(-1), aux_values.reshape(-1),
                       alpha.reshape(-1), consts])
     assert prog.n_vec + scal.shape[0] == prog.n_fixed
@@ -742,6 +742,7 @@ Q1_KERNEL = cuda.Kernel(
      cuda.P, cuda.P, cuda.P, cuda.P, cuda.I64, cuda.I64, cuda.I64, cuda.I64,
      cuda.I64, cuda.I64, cuda.I64, cuda.I64,
      cuda.P, cuda.I32, cuda.I32, cuda.I32, cuda.I32, cuda.P, cuda.I64, cuda.I64, cuda.I32, cuda.I32, cuda.P],
+    "constraints_eval_kernel",
 )
 
 

@@ -24,6 +24,18 @@ statement, and its LDEs are read by the constraints and opened first.
 Everything from the traces to the query indices runs on the traces' device
 under a device challenger; the transcript is read back once, then the query
 openings once more.
+
+Steps 2–6 up to the query indices are the four ``STAGES`` (main, aux,
+quotient, open), each a function of a :class:`ProofLayout` (what the shape
+fixes), a channel and an environment of tensors. :mod:`.fused` runs each as
+one phase, and a final phase for the transcript payload. :func:`prove`
+hands the proof to :func:`~.fused.prove_fused` where
+:func:`~.fused.use_fused` says (on the card unless ``fused=False``, on the
+CPU only with ``fused=True``, never under an active mesh): it keeps the
+phases of the proof's shape, captured into CUDA graphs on the card at the
+shape's second proof and replayed from then on. Elsewhere it runs the
+phases once, eagerly (:func:`~.fused.prove_eager`). Both give the same
+bytes.
 """
 
 from __future__ import annotations
@@ -42,7 +54,7 @@ from ..field import goldilocks as F
 from ..merkle import lmcs
 from ..ntt import ntt
 from ..transcript.challenger import DuplexChallenger, TranscriptData
-from ..transcript.device_challenger import DeviceChallenger, DeviceProverChannel
+from ..transcript.device_challenger import DeviceChallenger
 from ..utils.tracing import span
 from . import interp, pcs
 from .air import Air, Expr, Folder, MultiAir, VectorBackend
@@ -125,7 +137,7 @@ def _periodic_on_domain(pattern, n, log_d, shift, device) -> torch.Tensor:
     period-p pattern's interpolant evaluated at x^{n/p}, tiled."""
     p = len(pattern)
     s_eff = gl.exp_power_of_2(shift, (n // p).bit_length() - 1)
-    evals = F.to_torch(np.asarray(pattern, dtype=np.uint64)[:, None], device)
+    evals = F.table(pattern, device)[:, None]
     small = ntt.coset_lde(evals, log_d, s_eff)  # (p·D, 1)
     return small[:, 0].repeat(n // p)
 
@@ -182,7 +194,7 @@ def _coset_tables(air: Air, domain: LiftedDomain, log_d: int, device) -> tuple:
     for _ in range(d):
         z_vals.append(gl.sub(v, 1))
         v = gl.mul(v, wd)
-    z_tile = F.to_torch(np.asarray(z_vals, dtype=np.uint64), device).repeat(n)
+    z_tile = F.table(z_vals, device).repeat(n)
     last_den_raw = F.sub(pts, F.const(gl.inv(domain.trace_generator), device=device))
     sels = (
         F.mul(z_tile, F.inv(F.sub(pts, F.const(1, device=device)))),
@@ -191,7 +203,7 @@ def _coset_tables(air: Air, domain: LiftedDomain, log_d: int, device) -> tuple:
     )
     periodic = [_periodic_on_domain(p, n, log_d, shift, device) for p in air.periodic_columns]
     inv_z = [gl.inv(zv) for zv in z_vals]
-    inv_tile = F.to_torch(np.asarray(inv_z, dtype=np.uint64), device).repeat(n)
+    inv_tile = F.table(inv_z, device).repeat(n)
     return sels, periodic, inv_tile
 
 
@@ -313,8 +325,8 @@ def _quotient_chunks_dev(acc, domain: LiftedDomain, log_d: int, log_blowup: int)
     n = domain.trace_height
     d = 1 << log_d
     coeffs_br = ntt.coset_interpolate_bitrev(acc, domain.lde_shift).reshape(n, d, 2)
-    br = [int(format(t, f"0{log_d}b")[::-1], 2) if log_d else 0 for t in range(d)]
-    chunk_coeffs = coeffs_br[:, br].reshape(n, 2 * d)  # columns t0.c0, t0.c1, t1.c0, ...
+    br = ntt.bitrev_index(d, acc.device)
+    chunk_coeffs = coeffs_br.index_select(1, br).reshape(n, 2 * d)  # columns t0.c0, t0.c1, t1.c0, ...
     return ntt.evaluate_coeffs_on_coset(chunk_coeffs, log_blowup, domain.lde_shift)
 
 
@@ -349,6 +361,176 @@ def _ood_valid_flag(domain: LiftedDomain, z):
     return (z != 0).any() & ~in_h & ~in_k
 
 
+@dataclass
+class ProofLayout:
+    """What the stages of a proof know besides their tensors, all fixed by
+    the statement's shape: the AIRs, their log heights, the proof order
+    (ascending height), the lifted max domain, each AIR's domain and log
+    quotient degree (proof order), the largest of those degrees, and the
+    preprocessed trace of each AIR that declares one."""
+
+    params: PcsParams
+    airs: list
+    log_heights: list
+    order: list
+    max_domain: LiftedDomain
+    domains: list
+    log_ds: list
+    log_d: int
+    pp_for_air: dict
+
+    @classmethod
+    def of(cls, params: PcsParams, statement: Statement, traces: list, preprocessed=None) -> "ProofLayout":
+        """Check the traces and the preprocessed bundle against the statement
+        (``traces[i]``: any array of shape (n_i, width_i), instance order)."""
+        airs = statement.multi_air.airs
+        if (preprocessed is not None) != any(a.preprocessed_width > 0 for a in airs):
+            raise ValueError(
+                "preprocessed bundle must be supplied exactly when some AIR "
+                "declares preprocessed columns"
+            )
+        assert len(airs) == len(traces)
+        log_heights = [t.shape[0].bit_length() - 1 for t in traces]
+        for t, a in zip(traces, airs):
+            assert tuple(t.shape) == (1 << (t.shape[0].bit_length() - 1), a.width)
+        if preprocessed is not None:
+            validate_preprocessed(statement, traces, preprocessed, params)
+        order = proof_order(log_heights)
+        max_domain = LiftedDomain.canonical(max(log_heights), params.log_blowup)
+        log_ds = [log_quotient_degree(airs[i].constraint_degree()) for i in order]
+        log_d = max(log_ds)
+        assert log_d <= params.log_blowup, "constraint degree exceeds blowup"
+        return cls(
+            params=params, airs=list(airs), log_heights=log_heights, order=order,
+            max_domain=max_domain, domains=[max_domain.sub_domain(log_heights[i]) for i in order],
+            log_ds=log_ds, log_d=log_d,
+            pp_for_air=preprocessed.trace_index_for_air() if preprocessed else {},
+        )
+
+
+def bind_statement(statement: Statement, challenger: DuplexChallenger, preprocessed, log_heights, device):
+    """The device challenger bound to the preprocessed root (when there is
+    one), the statement and the shape (prover/mod.rs:282-292)."""
+    dch = DeviceChallenger.from_host(challenger, device)
+    if preprocessed is not None:
+        dch.observe_arr(preprocessed.tree.root_dev())
+    statement.observe(dch, log_heights)
+    return dch
+
+
+def statement_tensors(statement: Statement, device) -> tuple:
+    """The statement's publics and aux inputs as (n,) tensors on ``device``."""
+    return tuple(
+        F.to_torch(np.asarray([int(v) % gl.P for v in vals], dtype=np.uint64), device)
+        for vals in (statement.publics, statement.aux_inputs)
+    )
+
+
+# ---------------------------------------------------------------------------
+# The stages of a proof. Each ``stage(lay, channel, env)`` reads its inputs
+# from ``env`` and writes its outputs there: the inputs "traces" (instance
+# order, on the device), "publics", "aux_inputs" and "pp_tree" (None
+# without preprocessed columns), then "main_tree"; "aux_tree",
+# "aux_values" (proof order), "randomness", "alpha", "beta";
+# "quotient_tree", "z"; "fri_trees", "idx". :mod:`.fused` runs them, one
+# phase each.
+# ---------------------------------------------------------------------------
+
+
+def stage_main(lay: ProofLayout, channel, env: dict) -> None:
+    """Commit the main traces (proof order)."""
+    traces = env["traces"]
+    with span("commit to main traces"):
+        tree = commit_traces([traces[i] for i in lay.order], lay.params.log_blowup, hash=lay.params.lmcs_hash())
+    channel.send_commitment(tree.root_dev())
+    env["main_tree"] = tree
+
+
+def stage_aux(lay: ProofLayout, channel, env: dict) -> None:
+    """Randomness → aux traces (instance order) → commit (proof order) →
+    aux values → the constraint fold and accumulation challenges α, β."""
+    max_rand = max((a.num_randomness for a in lay.airs), default=0)
+    randomness = [channel.sample_ext() for _ in range(max_rand)]
+    with span("build aux traces"):
+        # device tensors: aux (n, 2·aux_width) and aux values (num_aux_values, 2)
+        aux_pairs = []
+        for a, t in zip(lay.airs, env["traces"]):
+            with span("aux trace of one AIR", air=type(a).__name__):
+                aux_pairs.append(
+                    a.build_aux_trace(t, env["publics"], env["aux_inputs"], randomness[: a.num_randomness])
+                )
+    with span("commit to aux traces"):
+        tree = commit_traces(
+            [aux_pairs[i][0] for i in lay.order], lay.params.log_blowup, hash=lay.params.lmcs_hash()
+        )
+    channel.send_commitment(tree.root_dev())
+    aux_values = [aux_pairs[i][1] for i in lay.order]
+    for vals in aux_values:
+        channel.send_ext_slice(vals)
+    env.update(
+        aux_tree=tree, aux_values=aux_values, randomness=_ext_stack(randomness, env["publics"].device),
+        alpha=channel.sample_ext(), beta=channel.sample_ext(),
+    )
+
+
+def stage_quotient(lay: ProofLayout, channel, env: dict) -> None:
+    """Per-AIR quotient evaluation + Horner accumulation under lifting,
+    the quotient commitment and the OOD point z."""
+    main_tree, aux_tree, pp_tree = env["main_tree"], env["aux_tree"], env["pp_tree"]
+    rand_d, aux_values = env["randomness"], env["aux_values"]
+    acc = None
+    for k, i in enumerate(lay.order):
+        air = lay.airs[i]
+        with span("evaluate constraints", instance=k, air=type(air).__name__):
+            dom = lay.domains[k]
+            q = evaluate_quotient(
+                air,
+                dom,
+                main_tree.matrices[k],
+                aux_tree.matrices[k] if air.aux_width else None,
+                lay.log_ds[k],
+                env["alpha"],
+                env["publics"],
+                rand_d[: air.num_randomness],
+                aux_values[k],
+                pp_tree.matrices[lay.pp_for_air[i]] if air.preprocessed_width else None,
+            )
+            if lay.log_ds[k] < lay.log_d:
+                q = upsample_evals(q, dom.lde_shift, lay.log_d - lay.log_ds[k])
+            if acc is None:
+                acc = q
+            else:
+                acc = _accumulate_step((dom.trace_height << lay.log_d) // acc.shape[0], acc, q, env["beta"])
+    with span("commit to quotient poly chunks"):
+        tree = commit_quotient(acc, lay.max_domain, lay.log_d, lay.params.log_blowup, hash=lay.params.lmcs_hash())
+    channel.send_commitment(tree.root_dev())
+    z = channel.sample_ext()
+    channel.check("ood point outside domains", _ood_valid_flag(lay.max_domain, z))
+    env.update(quotient_tree=tree, z=z)
+
+
+def opened_trees(env: dict) -> list:
+    """The committed trees in opening order: [preprocessed?, main, aux,
+    quotient] (prover/mod.rs:552-554)."""
+    pp = [env["pp_tree"]] if env["pp_tree"] is not None else []
+    return pp + [env["main_tree"], env["aux_tree"], env["quotient_tree"]]
+
+
+def stage_open(lay: ProofLayout, channel, env: dict) -> None:
+    """PCS opening at [z, z·ω_H] up to the query indices: OOD claims, DEEP
+    quotient, every FRI round, the PoW grinds."""
+    z = env["z"]
+    z_next = F.ext_mul_base(z, F.const(lay.max_domain.trace_generator, device=z.device))
+    with span("open"):
+        env["fri_trees"], env["idx"] = pcs.open_with_channel(
+            lay.params, lay.max_domain, opened_trees(env), [z, z_next], channel
+        )
+
+
+#: the stages in transcript order, by the name of their fused phase
+STAGES = (("main", stage_main), ("aux", stage_aux), ("quotient", stage_quotient), ("open", stage_open))
+
+
 def prove(
     params: PcsParams,
     statement: Statement,
@@ -356,6 +538,7 @@ def prove(
     challenger: DuplexChallenger,
     preprocessed=None,
     device="cuda",
+    fused: bool | None = None,
 ) -> StarkOutput:
     """Prove a multi-AIR statement on ``device``. ``traces[i]``: numpy u64
     or int64 tensor (n_i, width_i), instance order. The challenger must be
@@ -365,115 +548,27 @@ def prove(
     required exactly when some AIR declares preprocessed columns. Its
     commitment is observed into Fiat-Shamir before the statement
     (prover/mod.rs:282-285) but never enters the transcript: the verifier
-    holds it as trusted setup input."""
-    airs = statement.multi_air.airs
-    if (preprocessed is not None) != any(a.preprocessed_width > 0 for a in airs):
-        raise ValueError(
-            "preprocessed bundle must be supplied exactly when some AIR "
-            "declares preprocessed columns"
-        )
-    assert len(airs) == len(traces)
-    traces = [_as_device(t, device) for t in traces]
-    log_blowup = params.log_blowup
-    hash_cfg = params.lmcs_hash()
-    log_heights = [t.shape[0].bit_length() - 1 for t in traces]
-    for t, a in zip(traces, airs):
-        assert tuple(t.shape) == (1 << (t.shape[0].bit_length() - 1), a.width)
+    holds it as trusted setup input.
 
-    order = proof_order(log_heights)
-    max_domain = LiftedDomain.canonical(max(log_heights), log_blowup)
-    domains = [max_domain.sub_domain(log_heights[i]) for i in order]
+    ``fused``: whether the proof goes through :func:`~.fused.prove_fused`,
+    which keeps the phases of the proof's shape: on the card their CUDA
+    graphs, captured at the shape's second proof and replayed from then
+    on. None leaves it to :func:`~.fused.use_fused`: fused on the card,
+    not on the CPU nor under an active mesh. Otherwise the phases run once,
+    eagerly, and nothing is kept. Both give the same bytes."""
+    from .fused import prove_eager, prove_fused, use_fused
 
-    if preprocessed is not None:
-        validate_preprocessed(statement, traces, preprocessed, params)
+    run = prove_fused if use_fused(device, fused) else prove_eager
+    return run(params, statement, traces, challenger, preprocessed, device)
 
-    dch = DeviceChallenger.from_host(challenger, device)
-    if preprocessed is not None:
-        dch.observe_arr(preprocessed.tree.root_dev())
-    statement.observe(dch, log_heights)
-    channel = DeviceProverChannel(dch)
 
-    log_ds = [log_quotient_degree(airs[i].constraint_degree()) for i in order]
-    log_d = max(log_ds)
-    assert log_d <= log_blowup, "constraint degree exceeds blowup"
-
-    # 1. Commit main traces (proof order).
-    with span("commit to main traces"):
-        main_tree = commit_traces([traces[i] for i in order], log_blowup, hash=hash_cfg)
-    channel.send_commitment(main_tree.root_dev())
-
-    # 2. Randomness → aux traces (instance order) → external assertions →
-    #    commit (proof order) → send aux values.
-    max_rand = max((a.num_randomness for a in airs), default=0)
-    randomness = [channel.sample_ext() for _ in range(max_rand)]
-    with span("build aux traces"):
-        # device tensors: aux (n, 2·aux_width) and aux values (num_aux_values, 2)
-        aux_pairs = []
-        for a, t in zip(airs, traces):
-            with span("aux trace of one AIR", air=type(a).__name__):
-                aux_pairs.append(
-                    a.build_aux_trace(t, statement.publics, statement.aux_inputs, randomness[: a.num_randomness])
-                )
-    with span("commit to aux traces"):
-        aux_tree = commit_traces([aux_pairs[i][0] for i in order], log_blowup, hash=hash_cfg)
-    channel.send_commitment(aux_tree.root_dev())
-    aux_values = [aux_pairs[i][1] for i in order]
-    for vals in aux_values:
-        channel.send_ext_slice(vals)
-
-    # 3. Constraint fold / accumulation challenges.
-    alpha = channel.sample_ext()
-    beta = channel.sample_ext()
-    pub_d = F.to_torch(np.asarray([int(p) % gl.P for p in statement.publics], dtype=np.uint64), device)
-    rand_d = _ext_stack(randomness, device)
-
-    # 4. Per-AIR quotient evaluation + Horner accumulation under lifting.
-    pp_for_air = preprocessed.trace_index_for_air() if preprocessed else {}
-    acc = None
-    for k, i in enumerate(order):
-        with span("evaluate constraints", instance=k, air=type(airs[i]).__name__):
-            air = airs[i]
-            dom = domains[k]
-            q = evaluate_quotient(
-                air,
-                dom,
-                main_tree.matrices[k],
-                aux_tree.matrices[k] if air.aux_width else None,
-                log_ds[k],
-                alpha,
-                pub_d,
-                rand_d[: air.num_randomness],
-                aux_values[k],
-                preprocessed.tree.matrices[pp_for_air[i]] if air.preprocessed_width else None,
-            )
-            if log_ds[k] < log_d:
-                q = upsample_evals(q, dom.lde_shift, log_d - log_ds[k])
-            if acc is None:
-                acc = q
-            else:
-                acc = _accumulate_step((dom.trace_height << log_d) // acc.shape[0], acc, q, beta)
-
-    # 5. Commit quotient.
-    with span("commit to quotient poly chunks"):
-        quotient_tree = commit_quotient(acc, max_domain, log_d, log_blowup, hash=hash_cfg)
-    channel.send_commitment(quotient_tree.root_dev())
-
-    # 6. OOD point + PCS opening at [z, z·ω_H].
-    z = channel.sample_ext()
-    channel.check("ood point outside domains", _ood_valid_flag(max_domain, z))
-    z_next = F.ext_mul_base(z, F.const(max_domain.trace_generator, device=device))
-    # opened tree order: [preprocessed?, main, aux, quotient] (prover/mod.rs:552-554)
-    input_trees = ([preprocessed.tree] if preprocessed else []) + [main_tree, aux_tree, quotient_tree]
-    with span("open"):
-        fri_trees, idx_arr = pcs.open_with_channel(params, max_domain, input_trees, [z, z_next], channel)
-
-    # THE blocking readback: transcript + query indices in one transfer.
-    with span("transcript readback"):
-        idx_host = channel.materialize(extra=idx_arr)
-    mask = (1 << max_domain.log_lde_height) - 1
+def finish_proof(lay: ProofLayout, env: dict, idx_host, channel) -> StarkOutput:
+    """The host tail after the transcript readback: the query openings."""
+    mask = (1 << lay.max_domain.log_lde_height) - 1
     idx_raw = [int(v) & mask for v in idx_host]
     return _query_phase_and_finalize(
-        params, max_domain, input_trees, fri_trees, idx_raw, channel, log_heights, idx_arr
+        lay.params, lay.max_domain, opened_trees(env), env["fri_trees"], idx_raw, channel, lay.log_heights,
+        env["idx"],
     )
 
 

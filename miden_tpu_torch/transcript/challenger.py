@@ -40,8 +40,9 @@ def _grind_batch(pos: int, bits: int, batch: int, base: torch.Tensor, start: int
     state[pos] = ws
     lane = poseidon2.permute(state)[RATE - 1]
     ok = (lane & as_i64((1 << bits) - 1)) == 0
-    idx = torch.argmax(ok.to(torch.int32))  # first maximum: the smallest witness
-    return ws[idx], ok[idx]
+    # first maximum: the smallest witness (index_select: no host sync)
+    idx = torch.argmax(ok.to(torch.int32)).reshape(1)
+    return ws.index_select(0, idx)[0], ok.index_select(0, idx)[0]
 
 
 class DuplexChallenger:

@@ -147,6 +147,17 @@ class DeviceChallenger:
         return self.state[:4]
 
 
+def transcript_payload(entries: list, digest: torch.Tensor, extra, checks: list) -> torch.Tensor:
+    """The flat device tensor a proof reads back at once: every recorded
+    entry in transcript order, the digest, ``extra`` (or nothing) and one
+    0 / 1 per registered check."""
+    parts = [arr for (_k, arr) in entries] + [digest]
+    if extra is not None:
+        parts.append(extra)
+    parts += [flag.to(torch.int64) for (_l, flag) in checks]
+    return torch.cat([p.reshape(-1) for p in parts])
+
+
 class DeviceProverChannel:
     """Transcript recorder over device values; ``materialize()`` performs the
     single blocking readback into host :class:`TranscriptData` streams."""
@@ -216,12 +227,14 @@ class DeviceProverChannel:
         host streams. Returns ``extra`` as numpy u64 (or None). Raises if a
         registered device check failed."""
         digest = self.challenger.finalize()
-        parts = [arr for (_k, arr) in self._entries] + [digest]
-        if extra is not None:
-            parts.append(extra.reshape(-1))
-        parts += [flag.reshape(1).to(torch.int64) for (_l, flag) in self._checks]
-        host = to_numpy(torch.cat([p.reshape(-1) for p in parts]))  # THE readback
+        host = to_numpy(transcript_payload(self._entries, digest, extra, self._checks))  # THE readback
+        vals = self.read_back(host, 0 if extra is None else extra.numel())
+        return None if extra is None else vals
 
+    def read_back(self, host: np.ndarray, n_extra: int = 0):
+        """Take the read-back :func:`transcript_payload` of this channel's
+        entries and checks into the host streams; returns the ``n_extra``
+        values of ``extra``. Raises if a registered device check failed."""
         off = 0
         fields: list[int] = []
         commitments: list[tuple] = []
@@ -235,10 +248,9 @@ class DeviceProverChannel:
                 commitments.append(tuple(int(v) for v in vals))
         digest_vals = [int(v) for v in host[off : off + 4]]
         off += 4
-        extra_vals = None
-        if extra is not None:
-            extra_vals = host[off : off + extra.numel()]
-            off += extra.numel()
+        extra_vals = host[off : off + n_extra]
+        off += n_extra
+        assert len(host) - off == len(self._checks)
         for (label, _), v in zip(self._checks, host[off:]):
             if not int(v):
                 raise AssertionError(f"device-side check failed: {label}")

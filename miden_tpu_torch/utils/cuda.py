@@ -8,13 +8,18 @@ loaded when a module is imported.
 
 Every exported launcher takes the pointers and the stream as ``void*`` and
 returns the CUDA error of its launch; :meth:`Kernel.launch` raises when it is
-not 0 and otherwise adds one to the kernel's ``launches`` count.
+not 0 and otherwise adds one to the kernel's ``launches`` count. A launch
+made while a CUDA graph is captured under :func:`recording_launches` is
+counted on each replay of that graph instead (:meth:`LaunchLog.replay`),
+once :func:`graph_kernel_nodes` has found it among the graph's nodes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -30,6 +35,141 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _lock = threading.Lock()
 _libs: dict = {}
+_recording = None  # the LaunchLog of the graph capture in progress
+
+
+def capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph."""
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
+class LaunchLog:
+    """The kernel launches recorded into one CUDA graph, ``{(kernel, shape
+    key): count}``: :meth:`replay` adds them to the kernels' counts, once
+    for each replay of the graph."""
+
+    def __init__(self):
+        self.counts: dict = {}
+
+    def add(self, kernel: "Kernel", key) -> None:
+        self.counts[(kernel, key)] = self.counts.get((kernel, key), 0) + 1
+
+    def total(self) -> int:
+        return sum(self.counts.values())
+
+    def per_kernel(self) -> dict:
+        """``{kernel: count}`` over every shape key."""
+        out: dict = {}
+        for (kernel, _key), n in self.counts.items():
+            out[kernel] = out.get(kernel, 0) + n
+        return out
+
+    def replay(self) -> None:
+        for (kernel, key), n in self.counts.items():
+            kernel.count(key, n)
+
+
+def source_names(name: str) -> set:
+    """The source names in a device function's name, mangled (``_Z...``, as
+    the CUDA driver API gives it) or demangled (as the profiler does): among them the
+    function's own and those of its template arguments."""
+    if not name.startswith("_Z"):
+        return set(re.findall(r"[A-Za-z_][A-Za-z0-9_]*", name))
+    names, i = set(), 2
+    while i < len(name):
+        m = re.match(r"[0-9]+", name[i:])
+        if m is None:
+            i += 1
+            continue
+        i += len(m.group())
+        names.add(name[i : i + int(m.group())])
+        i += int(m.group())
+    return names
+
+
+_KERNELS: list = []  # every Kernel made, for kernel_named
+_FUNCTIONS: dict = {}  # CUfunction or CUkernel handle -> its Kernel, or None
+
+
+def kernel_named(name: str):
+    """The :class:`Kernel` whose device function ``name`` is (mangled or
+    demangled), or None for a function of no kernel of the port."""
+    names = source_names(name)
+    for kernel in _KERNELS:
+        if kernel.fn in names and (kernel.variant is None or kernel.variant in names):
+            return kernel
+    return None
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """``CUDA_KERNEL_NODE_PARAMS_v2`` of cuda.h."""
+
+    _fields_ = [("func", ctypes.c_void_p)] + [
+        (f, ctypes.c_uint) for f in ("grid_x", "grid_y", "grid_z", "block_x", "block_y", "block_z", "shared")
+    ] + [(f, ctypes.c_void_p) for f in ("params", "extra", "kern", "ctx")]
+
+
+_libcuda = None
+
+
+def _drv(fn: str, *args) -> None:
+    """Call the CUDA driver's ``fn``; raise on an error."""
+    global _libcuda
+    if _libcuda is None:
+        _libcuda = ctypes.CDLL("libcuda.so.1")
+    err = getattr(_libcuda, fn)(*args)
+    if err != 0:
+        raise KernelError(f"{fn} failed with error {err}")
+
+
+def _kernel_of_node(params: _KernelNodeParams):
+    handle = params.func or params.kern
+    if handle not in _FUNCTIONS:
+        name = ctypes.c_char_p()
+        if params.func:
+            _drv("cuFuncGetName", ctypes.byref(name), ctypes.c_void_p(params.func))
+        else:
+            _drv("cuKernelGetName", ctypes.byref(name), ctypes.c_void_p(params.kern))
+        _FUNCTIONS[handle] = kernel_named(name.value.decode())
+    return _FUNCTIONS[handle]
+
+
+def graph_kernel_nodes(graph) -> tuple:
+    """``(nodes, {kernel: count})`` of a captured
+    ``torch.cuda.CUDAGraph(keep_graph=True)``: its node count, and how many
+    of its kernel nodes run each :class:`Kernel`'s device function (read
+    with ``cuGraphGetNodes``, ``cuGraphKernelNodeGetParams`` and
+    ``cuFuncGetName``): the launches of the port's kernels that each replay
+    of the graph makes."""
+    g = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    _drv("cuGraphGetNodes", g, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    _drv("cuGraphGetNodes", g, nodes, ctypes.byref(n))
+    counts: dict = {}
+    kind, params = ctypes.c_int(), _KernelNodeParams()
+    for node in nodes:
+        _drv("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        _drv("cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node), ctypes.byref(params))
+        kernel = _kernel_of_node(params)
+        if kernel is not None:
+            counts[kernel] = counts.get(kernel, 0) + 1
+    return n.value, counts
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Record (and do not count) every launch until the block ends; for the
+    capture of a CUDA graph, whose replays count them."""
+    global _recording
+    prev, log = _recording, LaunchLog()
+    _recording = log
+    try:
+        yield log
+    finally:
+        _recording = prev
 
 
 class KernelError(RuntimeError):
@@ -178,10 +318,13 @@ class Kernel:
     the count of launches per shape key (so that a run can time the kernel
     at the shapes it was really given)."""
 
-    def __init__(self, lib: str, symbol: str, argtypes: list):
+    def __init__(self, lib: str, symbol: str, argtypes: list, fn: str, variant: str | None = None):
         self.lib = lib
         self.symbol = symbol
         self.argtypes = argtypes
+        self.fn = fn  # the __global__ function the launcher launches
+        self.variant = variant  # the name of its template argument, where one tells it apart
+        _KERNELS.append(self)
         self.launches = 0
         self.shapes: dict = {}
         self._fn = None
@@ -196,8 +339,14 @@ class Kernel:
         err = self._fn(*args, stream)
         if err != 0:
             raise KernelError(f"{self.symbol}: CUDA launch failed with error {err}")
-        self.launches += 1
-        self.shapes[key] = self.shapes.get(key, 0) + 1
+        if _recording is not None:
+            _recording.add(self, key)
+        else:
+            self.count(key)
+
+    def count(self, key=(), n: int = 1) -> None:
+        self.launches += n
+        self.shapes[key] = self.shapes.get(key, 0) + n
 
 
 P = ctypes.c_void_p

@@ -6,7 +6,8 @@ nothing unless a :class:`Recorder` is active (``with Recorder() as rec:``).
 While one is, ``torch.cuda.synchronize()`` runs at each span edge on the
 card, so a span's time is the device work queued inside it (the prover is
 otherwise asynchronous and the time pools in the final readback); a traced
-run is therefore never a timed one.
+run is therefore never a timed one. While a CUDA graph is captured, spans
+neither synchronize nor record: nothing runs then.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import contextlib
 import time
 
 import torch
+
+from .cuda import capturing
 
 _recorders: list = []
 
@@ -56,7 +59,7 @@ def _sync() -> None:
 @contextlib.contextmanager
 def span(name: str, **fields):
     """A phase of the pipeline; ``fields`` describe it (rows, bits, ...)."""
-    if not _recorders:
+    if not _recorders or capturing():
         yield
         return
     _sync()

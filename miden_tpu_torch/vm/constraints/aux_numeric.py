@@ -30,8 +30,9 @@ def build_device_aux(air, main, publics, randomness, columns_fn, seed_fn=None):
     — the analog of the reference's fused accumulator
     (air/src/lookup/aux_builder.rs:36-303).
 
-    ``main`` is the (n, width) int64 trace on the device and ``randomness``
-    holds (2,) extension tensors there, as the prover passes them. Returns
+    ``main`` is the (n, width) int64 trace on the device, ``publics`` the
+    (n_pub,) public values there (or a host list) and ``randomness`` holds
+    (2,) extension tensors there, as the prover passes them. Returns
     the aux trace (n, 2·(1+k)) — the accumulator first, then the k fraction
     columns, c0 and c1 side by side, row n−1 of every fraction column zero —
     and the aux values (num_aux_values, 2)."""
@@ -45,15 +46,14 @@ def build_device_aux(air, main, publics, randomness, columns_fn, seed_fn=None):
     def main_fn(c, offset=0):
         return Expr(be, "base", (main_next if offset else main_t)[c])
 
-    periodic = [
-        Expr(be, "base", F.to_torch(np.tile(np.asarray(p, dtype=np.uint64), n // len(p)), device))
-        for p in air.periodic_columns
-    ]
+    periodic = [Expr(be, "base", F.table(p, device).repeat(n // len(p))) for p in air.periodic_columns]
+    if not isinstance(publics, torch.Tensor):
+        publics = F.to_torch([int(v) % gl.P for v in publics], device)
     folder = Folder(
         be,
         main_fn=main_fn,
         periodic=periodic,
-        publics=[Expr(be, "base", be.const(int(v))) for v in publics],
+        publics=[Expr(be, "base", publics[i]) for i in range(publics.shape[0])],
         randomness=[Expr(be, "ext", r) for r in randomness],
         selectors=(Expr(be, "base", be.const(0)), Expr(be, "base", be.const(0)),
                    Expr(be, "base", be.const(1))),

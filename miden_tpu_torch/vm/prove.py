@@ -228,11 +228,15 @@ def prove_program(
     advice: AdviceProvider | None = None,
     params: PcsParams = MIDEN_PARAMS,
     device="cuda",
+    fused: bool | None = None,
     **opts,
 ) -> tuple[ExecutionOutput, VmProof]:
     """Execute + prove (prover/src/lib.rs:117 prove_sync): the program
     runs on the host, and its three trace matrices are proved on
-    ``device`` (the card unless the caller asks for ``"cpu"``)."""
+    ``device`` (the card unless the caller asks for ``"cpu"``). ``fused``
+    goes to :func:`~..stark.prover.prove`: None proves through the fused
+    phases on the card (CUDA graphs from a shape's second proof on) and
+    eagerly on the CPU; True or False forces one path."""
     from ..stark.prover import prove
 
     with span("execute and trace"):
@@ -250,6 +254,7 @@ def prove_program(
         [trace.matrix, trace.chiplets, trace.poseidon],
         DuplexChallenger(protocol_seed()),
         device=device,
+        fused=fused,
     )
     wire = None
     if out.deferred_state is not None and any(trace.deferred_root):

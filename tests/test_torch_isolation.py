@@ -48,6 +48,7 @@ def _sources():
         "from miden_tpu_torch.stdlib.recursion import extract_recursion_fixture; "
         "import miden_tpu_torch.bench_recursion; from miden_tpu_torch.dsa import ed25519, falcon512",
         "from miden_tpu_torch.dist import make_mesh, use_mesh; from miden_tpu_torch.dist.prover import prove_sharded",
+        "from miden_tpu_torch.stark.fused import prove_fused, use_fused",
     ],
 )
 def test_import_pulls_in_neither_jax_nor_miden_tpu(stmt):

@@ -123,6 +123,18 @@ def test_both_verifiers_accept_the_port_proof(port_proof):
                     preprocessed_commitment=pp.commitment()) == out.digest
 
 
+def test_fused_proof_equals_miden_tpu_and_the_eager_proof(jax_proof, port_proof):
+    """The fused phases (forced on the CPU), the preprocessed tree among
+    their static inputs, give the eager proof's bytes."""
+    st, traces, pp = _port()
+    out = prove(TEST_PARAMS, st, traces, C.DuplexChallenger(SEED), preprocessed=pp, device="cpu", fused=True)
+    _, _, eager = port_proof
+    assert proof_to_bytes(out.proof) == proof_to_bytes(eager.proof) == jax_proof[1]
+    assert out.digest == eager.digest == jax_proof[2]
+    assert j_verify(J_TEST_PARAMS, _j_statement(), _j_proof(out), JC.DuplexChallenger(SEED),
+                    preprocessed_commitment=pp.commitment()) == out.digest
+
+
 def _j_proof(out):
     from miden_tpu.stark.proof_io import proof_from_bytes as j_proof_from_bytes
 

@@ -65,6 +65,20 @@ def test_miden_tpu_verifier_accepts_the_port_proof(port_proof):
     assert j_verify(J_TEST_PARAMS, statement, proof, JC.DuplexChallenger(SEED)) == port_proof.digest
 
 
+def test_fused_proof_equals_miden_tpu_and_the_eager_proof(jax_proof, port_proof):
+    """The fused phases (forced on the CPU) give the eager proof's bytes, and
+    miden_tpu's verifier accepts them."""
+    from miden_tpu.stark.proof_io import proof_from_bytes as j_proof_from_bytes
+
+    statement, traces = B.miden_shaped_statement(6, device="cpu")
+    out = prove(TEST_PARAMS, statement, traces, C.DuplexChallenger(SEED), device="cpu", fused=True)
+    assert proof_to_bytes(out.proof) == proof_to_bytes(port_proof.proof) == j_proof_to_bytes(jax_proof.proof)
+    assert out.digest == port_proof.digest == jax_proof.digest
+    jstatement, _ = JB.miden_shaped_statement(6)
+    proof = j_proof_from_bytes(proof_to_bytes(out.proof))
+    assert j_verify(J_TEST_PARAMS, jstatement, proof, JC.DuplexChallenger(SEED)) == out.digest
+
+
 def test_port_verifier_accepts_the_miden_tpu_proof(jax_proof):
     statement, _ = B.miden_shaped_statement(6, device="cpu")
     proof = proof_from_bytes(j_proof_to_bytes(jax_proof.proof))
