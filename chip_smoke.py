@@ -110,19 +110,21 @@ Phases, one line each (plus details):
    equal;
 12. multi-device proving (``miden_tpu_torch.dist``, ``bench_dist``): (a) the
    program of 5(b) through prove_program under use_mesh(make_mesh("cuda")),
-   an NCCL group of world size 1 (NCCL refuses two ranks on one card): its
-   bytes equal 5(b)'s, its seconds beside 5e's eager call of that shape and
-   its peak memory beside 5(b)'s eager peak (no fused phases under a mesh), every
-   entry of the path launched; (b) on 4 gloo ranks sharing the card (spawned
-   after the build, loading its libraries): coset_lde_sharded and
-   build_tree_sharded at the shapes of vm-fib-18's main trace ((2^18, 51)
-   row-sharded to a 2^21-row LDE, (2^13, 24), (2^16, 16); random values),
-   each rank's LDE rows, every layer, the whole matrices and the root equal
-   to the single-device result on the card, with the seconds and the bytes
-   each rank moved, and which gloo collectives take CUDA tensors; (c) on 2
-   of those ranks, prove_program of the program of 5(a) under the mesh:
-   both ranks' bytes equal 5(a)'s CPU bytes. The shapes K1–K3 launched with
-   in (a)–(c) join phase 7's;
+   an NCCL group of world size 1 (NCCL refuses two ranks on one card), on
+   the fused path: the eager warm-up, the capture call (each phase captured
+   with its NCCL collectives) and a replay, each call's bytes equal to
+   5(b)'s, the graphs' kernel nodes held to the capture's launches; (d) on
+   4 gloo ranks sharing the card (spawned after the build, loading its
+   libraries): prove_sharded of that program, every rank's bytes equal to
+   5(b)'s, its peak allocated memory below 5e's one-device eager peak, the
+   bytes it holds of the max-height tensors at the end of stage_open a
+   quarter of one device's (each a RowShard), the bytes each collective
+   moved, its K1 / K2 / K3 / Q1 launches, Q1 held to its twin at the block
+   and halo it ran, and the sharded commit of vm-fib-18's main trace
+   shapes (random values) against one device's; (c) on 2 of those ranks,
+   prove_program of the program of 5(a) under their mesh: both ranks'
+   bytes equal 5(a)'s CPU bytes. The shapes the kernels launched with in
+   (a)'s replay, (d) and (c) join phase 7's;
 7. hold each kernel against its plain twin and time it, with its bound, at
    every shape phases 4, 5(b), 5c, 6(b), 10(b), 11(c) and 12 launched it with (5(b) and 5c: a
    replay's shapes; K1 printed at
@@ -1180,63 +1182,91 @@ SAMPLE_STATES = 1 << 14
 PLAIN_RATE_STATES = 1 << 20
 
 
-def dist_phase(torch, kernels, full, vm_bytes: bytes, eager_s: float, vm_peak: int, small_bytes: bytes) -> tuple:
-    """Phase 12: multi-device proving. (a) ``full`` (5b's program) under an
-    NCCL mesh of one rank (eager: no fused phases under a mesh), against
-    5b's bytes, the seconds ``eager_s`` of 5e's eager call of that shape
-    and 5b's eager peak ``vm_peak``; (b), (c) on ``bench_dist.RANKS`` gloo ranks sharing the card,
-    (c) against ``small_bytes`` (5a's CPU proof). Returns the launches and
-    shapes of (a)–(c) together, for phase 7."""
+def dist_phase(torch, kernels, full, vm_bytes: bytes, vm_peak: int, eager_peak: int, small_bytes: bytes) -> tuple:
+    """Phase 12: multi-device proving. (12a) ``full`` (5b's program) under an
+    NCCL mesh of one rank, through the fused phases captured with their
+    NCCL collectives (the eager warm-up, the capture call, a replay), each
+    against 5b's bytes; (12d) ``prove_sharded`` of it on
+    ``bench_dist.RANKS`` gloo ranks sharing the card, each rank's bytes
+    against 5b's, its peak beside 5b's eager peak ``vm_peak`` and 5e's
+    ``eager_peak``, the bytes it holds of the max-height tensors beside one
+    device's, its traffic, its K1 / K2 / K3 / Q1 launches and Q1 held to its
+    twin at its block and halo; (12c) fib ``repeat.10`` on 2 of those ranks
+    against ``small_bytes`` (5a's CPU proof). Returns the launches and
+    shapes of 12a's replay, 12d and 12c together, for phase 7."""
     from miden_tpu_torch import bench_dist
 
     kerns = {name: kern for name, (kern, _, _) in kernels.items()}
+    t0 = time.perf_counter()
     a = bench_dist.nccl_prove(full, kerns)
-    if a["bytes"] != vm_bytes:
-        raise AssertionError("phase 12a: the proof under the NCCL mesh differs from phase 5b's")
-    check_path(a["launches"], "poseidon2", "phase 12a")
-    log(f"  12a launches: {a['launches']}")
+    a_s = time.perf_counter() - t0
+    for name, call in zip(("warm-up (eager)", "capture call", "replay"), a["calls"]):
+        if call["bytes"] != vm_bytes:
+            raise AssertionError(f"phase 12a: the {name} under the NCCL mesh differs from phase 5b's proof")
+        check_path(call["launches"], "poseidon2", f"phase 12a {name}")
+        log(f"  12a {name}: {call['seconds']:.4f} s, peak {call['peak'] / 2**30:.3f} GiB, bytes == phase 5b's; "
+            f"launches {call['launches']}")
+    replay = a["calls"][2]["launches"]
+    if replay != a["calls"][0]["launches"]:
+        raise AssertionError(f"phase 12a: the replay launched {replay}, the eager warm-up {a['calls'][0]['launches']}")
+    log(f"  12a graphs (the port's kernel nodes read back from each phase's graph == the capture's launches; "
+        f"the binding of the statement runs eagerly beside them): {a['graphs']}")
     log_phase(f"phase 12a vm-fib-18 under use_mesh(make_mesh('cuda')), {a['backend']} world size {a['world']}: "
-              f"prove_program {a['seconds']:.4f} s, peak {a['peak_gib']:.3f} GiB (without a mesh, eager: 5e's "
-              f"{eager_s:.4f} s, 5b's peak {vm_peak / 2**30:.3f} GiB); bytes == phase 5b's; {a['traffic']['gather']} "
-              f"bytes gathered")
+              f"fused, the phases captured with their NCCL collectives; warm-up {a['calls'][0]['seconds']:.4f} s, "
+              f"capture call {a['calls'][1]['seconds']:.4f} s, replay {a['calls'][2]['seconds']:.4f} s "
+              f"({sum(replay.values())} launches == the warm-up's); all three == phase 5b's bytes "
+              f"({len(vm_bytes)}); {a_s:.1f} s in all")
+    drain_program_checks()  # Q1 at 12a's block and halo (the whole coset over one rank), then its LDEs go
 
     t0 = time.perf_counter()
-    ranks = bench_dist.gloo_ranks()
+    ranks = bench_dist.sharded_ranks(fib_program(VM_FULL_REPS), fib_program(VM_SMALL_REPS))
     spawn_s = time.perf_counter() - t0
-    log("  gloo collectives on CUDA tensors: " + "; ".join(f"{k} {v}" for k, v in ranks[0]["probe"].items()))
-    roots = {tuple(r["lde_tree"]["root"]) for r in ranks}
     for k, r in enumerate(ranks):
-        b = r["lde_tree"]
-        missing = [name for name in bench_dist.COMMIT_KERNELS if not b["launches"][name]]
-        if not (b["rows_equal"] and b["layers_equal"] and b["matrices_equal"]) or len(roots) != 1 or missing:
-            raise AssertionError(f"phase 12b rank {k}: rows {b['rows_equal']}, layers {b['layers_equal']}, "
-                                 f"matrices {b['matrices_equal']}, roots {len(roots)}, not launched {missing}")
-        commit_launches = {name: b["launches"][name] for name in bench_dist.COMMIT_KERNELS}
-        log(f"  12b rank {k}: LDE rows {b['lde_rows']} and all {b['layers']} layers == single device; "
-            f"{b['seconds']:.4f} s (one device, the same work on this rank: {b['single_seconds']:.4f} s); "
-            f"sent {b['traffic']['exchange']} bytes in exchanges, received "
-            f"{b['traffic']['gather']} in gathers; launches {commit_launches}")
-    moved = sum(r["lde_tree"]["traffic"]["exchange"] + r["lde_tree"]["traffic"]["gather"] for r in ranks)
-    log_phase(f"phase 12b {bench_dist.RANKS} gloo ranks on one card, vm-fib-18's main trace shapes (2^18, 51) -> "
-              f"2^21 LDE rows: every rank's rows, layers and root == the single-device card result; sharded "
-              f"commit {max(r['lde_tree']['seconds'] for r in ranks):.4f} s (slowest rank), {moved} bytes moved "
-              f"in all; the ranks' whole run {spawn_s:.3f} s")
+        held = r["held"]
+        launched = {name: r["launches"][name] for name in bench_dist.RANK_KERNELS}
+        bad_q1 = {key: q for key, q in r["q1"].items() if q["err"]}
+        if r["bytes"] != vm_bytes or held["not_sharded"] or held["local"] * bench_dist.RANKS != held["whole"]:
+            raise AssertionError(f"phase 12d rank {k}: bytes {'==' if r['bytes'] == vm_bytes else '!='} 5b's, "
+                                 f"not sharded {held['not_sharded']}, held {held}")
+        if not all(launched.values()) or bad_q1 or not r["q1"]:
+            raise AssertionError(f"phase 12d rank {k}: launches {launched}, Q1 checks {r['q1']}")
+        if r["peak"] >= eager_peak:
+            raise AssertionError(f"phase 12d rank {k}: peak {r['peak']} not below one device's {eager_peak}")
+        b = r["commit"]
+        if not (b["rows_equal"] and b["layers_equal"] and b["matrices_equal"]) or len(
+                {tuple(x["commit"]["root"]) for x in ranks}) != 1:
+            raise AssertionError(f"phase 12d rank {k}: the sharded commit of the main trace shapes differs from "
+                                 f"one device's: {b}")
+        log(f"  12d rank {k}: bytes == 5b's; {r['seconds']:.4f} s; peak {r['peak'] / 2**30:.3f} GiB (one "
+            f"device eager: 5b {vm_peak / 2**30:.3f}, 5e {eager_peak / 2**30:.3f}); per phase (GiB) "
+            + ", ".join(f"{ph} {v / 2**30:.3f}" for ph, v in r["phases"].items())
+            + f"; max-height tensors held at the end of stage_open {held['local']} bytes, one device "
+            f"{held['whole']} ({held['local'] / held['whole']:.4f}); traffic {r['traffic']}; launches {launched}; "
+            + "; ".join(f"{Q1} at {key}: == twin over {q['points']} of {q['nd']} points, max |diff| "
+                        f"{q['err']}, {q['ms']:.4f} ms" for key, q in r["q1"].items())
+            + f"; the sharded commit of the main trace shapes: LDE rows {b['lde_rows']} and all {b['layers']} "
+            f"layers == one device's, {b['seconds']:.4f} s (one device {b['single_seconds']:.4f} s), traffic "
+            f"{b['traffic']}")
     for k, r in enumerate(ranks[:2]):
-        c = r["program"]
+        c = r["small"]
         if c["bytes"] != small_bytes:
             raise AssertionError(f"phase 12c rank {k}: the proof differs from phase 5a's")
         # a proof this small has no transform above 2^12 rows: K2 is not on its path
         launched = {name for name, n in c["launches"].items() if n}
         if launched != set(path_kernels("poseidon2")) - {"ntt_transpose_twiddle"}:
             raise AssertionError(f"phase 12c rank {k}: launches {c['launches']}")
-    log_phase(f"phase 12c prove_program of VM fib repeat.{VM_SMALL_REPS} on 2 gloo ranks: both ranks' bytes == "
-              f"phase 5a's ({len(small_bytes)} bytes); "
-              f"{', '.join('%.3f' % r['program']['seconds'] for r in ranks[:2])} s")
+    log_phase(f"phase 12d prove_sharded of vm-fib-18 on {bench_dist.RANKS} gloo ranks sharing the card: every "
+              f"rank's bytes == phase 5b's; seconds {', '.join('%.4f' % r['seconds'] for r in ranks)}; peaks "
+              f"{', '.join('%.3f' % (r['peak'] / 2**30) for r in ranks)} GiB (one device eager {eager_peak / 2**30:.3f}); "
+              f"each rank holds 1/{bench_dist.RANKS} of the max-height tensors; 12c fib repeat.{VM_SMALL_REPS} on "
+              f"2 of them == phase 5a's bytes; the ranks' whole run {spawn_s:.3f} s")
 
+    for key, q in (item for r in ranks for item in r["q1"].items()):
+        PROGRAM_CHECKS.held.setdefault(key, {"err": q["err"], "points": q["points"], "nd": q["nd"], "ms": q["ms"]})
     drain_program_checks()
     launches = {name: 0 for name in kernels}
     shapes = {name: {} for name in kernels}
-    for part in [a, *(r["lde_tree"] for r in ranks), *(r["program"] for r in ranks[:2])]:
+    for part in [a["calls"][2], *ranks, *(r["commit"] for r in ranks), *(r["small"] for r in ranks[:2])]:
         for name in kernels:
             launches[name] += part["launches"][name]
             for key, count in part["shapes"][name].items():
@@ -1256,21 +1286,23 @@ def q1_phase2_airs() -> list:
     return [(ChipletsVmAir(), 2), (Poseidon2PermutationAir(), 2), (SquareLutAir(12), 4)]
 
 
-def q1_random_check(torch, rand, air, stride: int) -> tuple:
+def q1_random_check(torch, rand, air, stride: int, halo: bool = False) -> tuple:
     """Q1 against its twin on random card inputs over 2^12 points (next rows
-    8 ahead, wrapping at the end), the LDE sources row-strided views.
-    Returns (max |diff|, points)."""
+    8 ahead, wrapping at the end; with ``halo``, the last 8 points' next
+    rows read from a separate 8-point halo, as on a rank's block), the LDE
+    sources row-strided views. Returns (max |diff|, points)."""
     from miden_tpu_torch.stark import interp
 
     nd = 1 << 12
 
-    def view(k):
-        return rand((nd * stride, k))[::stride] if k else None
+    def view(k, n=nd):
+        return rand((n * stride, k))[::stride] if k else None
 
+    halos = (view(air.width, 8), view(air.preprocessed_width, 8), view(2 * air.aux_width, 8)) if halo else None
     prog, inp = interp.program_inputs(
         air, view(air.width), view(2 * air.aux_width), tuple(rand((nd,)) for _ in range(3)),
         rand((max(40, air.num_public_values),)), rand((air.num_randomness, 2)), rand((air.num_aux_values, 2)),
-        [rand((nd,)) for _ in air.periodic_columns], rand((2,)), view(air.preprocessed_width), 8,
+        [rand((nd,)) for _ in air.periodic_columns], rand((2,)), view(air.preprocessed_width), 8, halo=halos,
     )
     return max_abs_err(interp.run_program_kernel(prog, inp), interp.run_program_plain(prog, inp)), nd
 
@@ -1308,6 +1340,8 @@ class ProgramChecks:
         return prog.n_instr * (blocks * 25 * self.launch_s + nd * TWIN_POINT_S)
 
     def install(self) -> None:
+        from miden_tpu_torch.bench_dist import q1_key
+        from miden_tpu_torch.dist.mesh import RowShard
         from miden_tpu_torch.stark import prover
         from miden_tpu_torch.utils import cuda
 
@@ -1315,8 +1349,9 @@ class ProgramChecks:
 
         def watched(air, domain, main_lde, aux_lde, log_d, *rest):
             # eager runs only: a capture runs nothing, and its tensors live in the graphs' pool
-            if main_lde.is_cuda and not cuda.capturing() and prover.uses_program(air, domain.trace_height, log_d):
-                key = (type(air).__name__, domain.trace_height << log_d)
+            on_card = (main_lde.local if isinstance(main_lde, RowShard) else main_lde).is_cuda
+            if on_card and not cuda.capturing() and prover.uses_program(air, domain.trace_height, log_d):
+                key = q1_key(air, domain, main_lde, log_d, rest[5] if len(rest) > 5 else None)
                 if key not in self.held and all(k != key for k, _, _ in self.pending):
                     self.pending.append((key, (air, domain, main_lde, aux_lde, log_d, *rest), self.eager))
             return real(air, domain, main_lde, aux_lde, log_d, *rest)
@@ -1826,9 +1861,10 @@ def card_phases(torch, kernels, card: str) -> int:
                 errs["ntt_transpose_twiddle"] = max(errs["ntt_transpose_twiddle"], err)
                 checked["ntt_transpose_twiddle"] += 1
     for air, stride in q1_phase2_airs():
-        err, checked_points = q1_random_check(torch, rand, air, stride)
-        errs[Q1] = max(errs[Q1], err)
-        checked[Q1] += 1
+        for halo in (False, True):
+            err, checked_points = q1_random_check(torch, rand, air, stride, halo)
+            errs[Q1] = max(errs[Q1], err)
+            checked[Q1] += 1
     torch.cuda.synchronize()
     for name, (kern, _, _) in kernels.items():
         log(f"  {name}: {checked[name]} comparisons, {kern.launches} launches, max |diff| {errs[name]}")
@@ -2000,10 +2036,14 @@ def card_phases(torch, kernels, card: str) -> int:
 
     # -- 5e. a second program of the same shape through 5b's graphs -------------
     other = assemble(fib_program(VM_OTHER_REPS))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()  # 5b's graphs' outputs and inputs
     t0 = time.perf_counter()
     _, other_eager = prove_program(other, VM_OTHER_INPUTS, params=MIDEN_PARAMS, device=dev, fused=False)
     torch.cuda.synchronize()
     other_eager_s = time.perf_counter() - t0
+    other_peak = torch.cuda.max_memory_allocated() - before  # the eager proof's own peak
     drain_program_checks()
     calls = plan.calls
     t0 = time.perf_counter()
@@ -2032,7 +2072,7 @@ def card_phases(torch, kernels, card: str) -> int:
     log_phase(f"phase 5e VM fib repeat.{VM_OTHER_REPS} with stack inputs {VM_OTHER_INPUTS} MIDEN_PARAMS: "
               f"log heights {other_proof.stark.log_heights}, another program hash; replayed through phase "
               f"5b's graphs in {other_s:.4f} s == its eager proof (fused=False: {other_eager_s:.4f} s, "
-              f"{other_eager_s / other_s:.2f}x the replay), verified; 5b's graphs held {held_gib:.3f} GiB "
+              f"{other_eager_s / other_s:.2f}x the replay; its own peak {other_peak / 2**30:.3f} GiB), verified; 5b's graphs held {held_gib:.3f} GiB "
               f"allocated in {pool_gib:.3f} GiB reserved between proofs, freed by fused.release()")
 
     # -- 5c, 5d: the other commitment hashes; preprocessed columns --------------
@@ -2051,7 +2091,7 @@ def card_phases(torch, kernels, card: str) -> int:
     recursion_proof = recursion_phase(torch, kernels, dev, vm_proof)
 
     # -- 12. multi-device: NCCL at world size 1, gloo ranks sharing the card -----
-    dist_proof = dist_phase(torch, kernels, full, vm_bytes, other_eager_s, vm_peak, small_cpu_bytes)
+    dist_proof = dist_phase(torch, kernels, full, vm_bytes, vm_peak, other_peak, small_cpu_bytes)
 
     # -- 7. kernels vs plain, and timings, at the proofs' shapes --------------
     rows = kernel_rows(torch, kernels, {

@@ -70,11 +70,17 @@ enum : uint32_t { OP_ADD = 0, OP_SUB = 1, OP_MUL = 2 };
 enum : uint32_t { KIND_ON = 0, KIND_OFF = 1, KIND_SCALAR = 2, KIND_INPUT = 3 };
 
 // One per-point input matrix: element (point i, column c) is at
-// ptr[i * point_stride + c * col_stride].
+// ptr[i * point_stride + c * col_stride]. A block of a coset that lies on
+// several ranks also has a halo, the points that follow the block: a next
+// row i >= nd is row i - nd of the halo, at halo[(i - nd) * halo_point_stride
+// + c * halo_col_stride].
 struct Sources {
   const uint64_t* ptr[kSources];
   int64_t point_stride[kSources];
   int64_t col_stride[kSources];
+  const uint64_t* halo[kSources];
+  int64_t halo_point_stride[kSources];
+  int64_t halo_col_stride[kSources];
 };
 
 // What a thread needs to find an operand of its K points.
@@ -85,6 +91,7 @@ struct Where {
   uint64_t* spill;       // this thread's first point in off-chip slot 0
   int64_t spill_stride;  // off-chip slot stride: points of the grid
   const Sources* src;
+  int64_t nd;            // points of the block; a next row past it is in the halo
 };
 
 template <int K>
@@ -104,8 +111,10 @@ __device__ __forceinline__ void op_apply(uint32_t op, const uint64_t (&a)[K], co
 // The address of input (descriptor off) at a point of row `row`, next row `nxt`.
 __device__ __forceinline__ const uint64_t* input_at(uint32_t off, const Where& w, int64_t row, int64_t nxt) {
   const uint32_t s = off & 3;
-  return w.src->ptr[s] + (int64_t)(off >> 3) * w.src->col_stride[s] +
-         ((off >> 2) & 1 ? nxt : row) * w.src->point_stride[s];
+  const int64_t col = (int64_t)(off >> 3);
+  const int64_t r = (off >> 2) & 1 ? nxt : row;
+  if (r >= w.nd) return w.src->halo[s] + col * w.src->halo_col_stride[s] + (r - w.nd) * w.src->halo_point_stride[s];
+  return w.src->ptr[s] + col * w.src->col_stride[s] + r * w.src->point_stride[s];
 }
 
 // Operand (kind, off) of the thread's K points, any kind.
@@ -174,8 +183,8 @@ template <int K>
 __global__ void __launch_bounds__(kMaxBlock)
     constraints_eval_kernel(const uint64_t* __restrict__ code, int64_t n_run, const uint64_t* __restrict__ scal,
                             uint32_t n_scal, Sources src, uint64_t* __restrict__ spill,
-                            uint64_t* __restrict__ out, int64_t nd, int64_t next_offset, uint32_t out0,
-                            uint32_t out1) {
+                            uint64_t* __restrict__ out, int64_t nd, int64_t next_offset, int64_t next_mask,
+                            uint32_t out0, uint32_t out1) {
   extern __shared__ uint64_t s_mem[];
   __shared__ Sources s_src;  // indexed by a run-time source id: kept out of local memory
   for (uint32_t k = threadIdx.x; k < n_scal; k += blockDim.x) s_mem[k] = scal[k];
@@ -184,7 +193,7 @@ __global__ void __launch_bounds__(kMaxBlock)
 
   const uint32_t tile = blockDim.x * K;
   const Where w{s_mem, n_scal + threadIdx.x, tile, spill + (int64_t)blockIdx.x * tile + threadIdx.x,
-                (int64_t)gridDim.x * tile, &s_src};
+                (int64_t)gridDim.x * tile, &s_src, nd};
   const int lane = threadIdx.x & 31;
   const int64_t tiles = (nd + tile - 1) / tile;
   for (int64_t t0 = blockIdx.x; t0 < tiles; t0 += gridDim.x) {
@@ -193,7 +202,7 @@ __global__ void __launch_bounds__(kMaxBlock)
 #pragma unroll
     for (int j = 0; j < K; ++j) {
       row[j] = (t0 * tile + j * blockDim.x + threadIdx.x) & (nd - 1);  // past nd: wraps, not written
-      nxt[j] = (row[j] + next_offset) & (nd - 1);
+      nxt[j] = (row[j] + next_offset) & next_mask;  // nd - 1: wraps; all ones: the halo past nd
       prev[j] = 0;
     }
     uint64_t batch = __ldg(code + lane);
@@ -278,19 +287,24 @@ extern "C" int constraints_occupancy(int k, int block, int64_t smem, int* per_sm
 // code: n_run packed instructions plus one batch of padding; scal: n_scal
 // scalars; spill: off-chip slots x blocks x block x k; out: (nd, 2). The
 // shared memory holds the scalars and n_on on-chip slots of block x k
-// points. nd is a power of two.
+// points. nd is a power of two. next_mask: nd - 1 (next rows wrap within
+// the block) or -1 (next rows past nd read the halo h0-h2).
 extern "C" int constraints_eval(const uint64_t* code, int64_t n_run, const uint64_t* scal, uint32_t n_scal,
                                 const uint64_t* p0, const uint64_t* p1, const uint64_t* p2,
                                 const uint64_t* p3, int64_t ps0, int64_t ps1, int64_t ps2, int64_t ps3,
-                                int64_t cs0, int64_t cs1, int64_t cs2, int64_t cs3, uint64_t* spill,
+                                int64_t cs0, int64_t cs1, int64_t cs2, int64_t cs3, const uint64_t* h0,
+                                const uint64_t* h1, const uint64_t* h2, int64_t hps0, int64_t hps1,
+                                int64_t hps2, int64_t hcs0, int64_t hcs1, int64_t hcs2, uint64_t* spill,
                                 uint32_t n_on, int k, int block, int blocks, uint64_t* out, int64_t nd,
-                                int64_t next_offset, uint32_t out0, uint32_t out1, cudaStream_t stream) {
-  Sources src{{p0, p1, p2, p3}, {ps0, ps1, ps2, ps3}, {cs0, cs1, cs2, cs3}};
+                                int64_t next_offset, int64_t next_mask, uint32_t out0, uint32_t out1,
+                                cudaStream_t stream) {
+  Sources src{{p0, p1, p2, p3}, {ps0, ps1, ps2, ps3}, {cs0, cs1, cs2, cs3},
+              {h0, h1, h2, nullptr}, {hps0, hps1, hps2, 0}, {hcs0, hcs1, hcs2, 0}};
   const size_t smem = ((size_t)n_scal + (size_t)n_on * block * k) * sizeof(uint64_t);
   const void* fn = nullptr;
   cudaError_t err = kernel_for(k, smem, &fn);
   if (err != cudaSuccess) return (int)err;
-  void* args[] = {&code, &n_run, &scal, &n_scal, &src, &spill, &out, &nd, &next_offset, &out0, &out1};
+  void* args[] = {&code, &n_run, &scal, &n_scal, &src, &spill, &out, &nd, &next_offset, &next_mask, &out0, &out1};
   err = cudaLaunchKernel(fn, dim3((unsigned)blocks), dim3((unsigned)block), args, smem, stream);
   return (int)(err == cudaSuccess ? cudaGetLastError() : err);
 }

@@ -13,10 +13,14 @@ Within block ``k`` that is the matrix itself, lifted by the sponge, when
 ``h ≤ S`` (``h`` divides ``k·S``), and the slice at ``(k·S) mod h`` when
 ``h > S``. Shorter matrices are held whole by every rank.
 
-Torch has no global sharded array, so each rank gathers the sharded
-matrices' rows and every digest layer into whole tensors after hashing (one
-collective per matrix and one per layer): the returned :class:`LmcsTree` is
-read by the openings, the DEEP claims and the quotient as it is.
+The returned :class:`~miden_tpu_torch.merkle.lmcs.LmcsTree` keeps what
+``miden_tpu``'s keeps sharded as :class:`~.mesh.RowShard` s: every
+max-height matrix (a whole one is cut to this rank's block) and the bottom
+``log2 S + 1`` digest layers, down to the layer of the ``D`` block roots.
+Only the top ``log2 D`` layers, folded from the gathered block roots, are
+whole on every rank. The tree carries its mesh: its openings gather the
+rows and siblings at the query indices from their owners
+(:func:`~miden_tpu_torch.merkle.lmcs.gather_query_data`).
 
 Reference analog: rayon-parallel leaf hashing and digest layers
 (crates/lifted-stark/src/lmcs/lifted_tree.rs:81-100).
@@ -27,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from ..merkle import lmcs
-from .mesh import Mesh, RowShard, gather_rows
+from .mesh import Mesh, RowShard, gather_rows, shard_rows
 
 
 def _local_lift_rows(m: torch.Tensor, h: int, shard: int, k: int) -> torch.Tensor:
@@ -52,25 +56,25 @@ def build_tree_sharded(matrices, mesh: Mesh) -> lmcs.LmcsTree:
     shard = max_h // mesh.size
     hash_cfg = lmcs.POSEIDON2_HASH
 
-    state = torch.zeros((12, shard), dtype=torch.int64, device=mesh.device)
+    placed = []
     for m, h in zip(matrices, heights):
         if isinstance(m, RowShard):
             if h != max_h:
                 raise ValueError("build_tree_sharded: only max-height matrices may be row-sharded")
-            local = m.local
-        else:
-            local = _local_lift_rows(m, h, shard, mesh.rank)
+        elif h == max_h:
+            m = shard_rows(m, mesh)
+        placed.append(m)
+    state = torch.zeros((12, shard), dtype=torch.int64, device=mesh.device)
+    for m, h in zip(placed, heights):
+        local = m.local if isinstance(m, RowShard) else _local_lift_rows(m, h, shard, mesh.rank)
         state = hash_cfg.absorb_rows(state, local)
     cur = state[:4].T.contiguous()
-    local_layers = [cur]
+    layers = [RowShard(cur, max_h)]
     while cur.shape[0] > 1:
         cur = hash_cfg.compress_rows(cur)
-        local_layers.append(cur)
-
-    layers = [gather_rows(RowShard(layer, layer.shape[0] * mesh.size), mesh) for layer in local_layers]
-    cur = layers[-1]
+        layers.append(RowShard(cur, cur.shape[0] * mesh.size))
+    cur = gather_rows(layers[-1], mesh)  # the D block roots
     while cur.shape[0] > 1:
         cur = hash_cfg.compress_rows(cur)
         layers.append(cur)
-    whole = [gather_rows(m, mesh) for m in matrices]
-    return lmcs.LmcsTree(matrices=whole, heights=heights, widths=widths, layers=layers)
+    return lmcs.LmcsTree(matrices=placed, heights=heights, widths=widths, layers=layers, mesh=mesh)

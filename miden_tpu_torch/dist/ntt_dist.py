@@ -6,8 +6,12 @@ exactly the first ``log2 D`` stages (for DIT, the last ``log2 D``). Those
 stages exchange whole blocks between partner ranks ``k`` and
 ``k ^ (D >> (s+1))``; the top rank keeps ``a + b``, the bottom one
 ``(a − b)·T`` (DIT: the bottom rank multiplies by ``T`` before the swap).
-Every other stage, and the zero-pad of the LDE in bit-reversed coefficient
-space, stays within the block and runs the single-device transforms of
+The LDE is two halves, each its own function: the interpolation
+(:func:`coset_interpolate_bitrev_sharded`) and the evaluation of
+bit-reversed coefficients on a larger coset
+(:func:`evaluate_coeffs_on_coset_sharded`); the quotient's upsampling and
+chunk LDE use them apart. Every other stage, and the zero-pad of the LDE in
+bit-reversed coefficient space, stays within the block and runs the single-device transforms of
 :mod:`miden_tpu_torch.ntt.ntt` (K1 / K2 on a card) unchanged, so the result
 is bit-identical to :func:`~miden_tpu_torch.ntt.ntt.coset_lde`.
 
@@ -59,36 +63,70 @@ def _dit_cross(x: torch.Tensor, tw: torch.Tensor, s: int, mesh: Mesh) -> torch.T
     return F.add(pre, other) if top else F.sub(other, pre)
 
 
-def coset_lde_sharded(evals: torch.Tensor, added_bits: int, shift_out: int, mesh: Mesh, shift_in: int = 1) -> RowShard:
-    """Sharded twin of :func:`miden_tpu_torch.ntt.ntt.coset_lde`: natural
-    evaluations over ``shift_in·H`` (the whole ``(n, w)`` tensor, which
-    every rank holds) → this rank's block of the natural evaluations over
-    ``shift_out·K``, ``|K| = n·2^added_bits``."""
-    x = shard_rows(evals, mesh)
-    n = x.rows
-    log_n = n.bit_length() - 1
+def _check_blocks(rows: int, mesh: Mesh, what: str) -> int:
+    log_n = rows.bit_length() - 1
     d = mesh.size
-    log_d = d.bit_length() - 1
-    if n != 1 << log_n or d != 1 << log_d or n // d < 2:
-        raise ValueError(f"coset_lde_sharded: {n} rows over {d} ranks (powers of two, ≥ 2 rows a block)")
-    big_n = n << added_bits
-    eff = gl.mul(shift_out % gl.P, gl.inv(shift_in % gl.P)) if shift_in != 1 else shift_out % gl.P
+    if rows != 1 << log_n or d & (d - 1) or rows // d < 2:
+        raise ValueError(f"{what}: {rows} rows over {d} ranks (powers of two, ≥ 2 rows a block)")
+    return log_n
 
-    # 1. interpolate: cross inverse-DIF stages, local stages, the GLOBAL 1/n
+
+def _bitrev_shift_powers(shift: int, n: int, mesh: Mesh, device) -> torch.Tensor:
+    """This rank's block of ``ntt.shift_powers(shift, n, bitrev=True)``,
+    made without the whole table: position ``k·R + j`` (``R = n/D``) is
+    ``shift^{bitrev_D(k) + D·bitrev_R(j)}``."""
+    d = mesh.size
+    rows = n // d
+    k_rev = int(format(mesh.rank, f"0{(d.bit_length() - 1)}b")[::-1], 2) if d > 1 else 0
+    base = ntt.shift_powers(gl.exp_power_of_2(shift % gl.P, d.bit_length() - 1), rows, True, device)
+    lead = pow(shift % gl.P, k_rev, gl.P)
+    return base if lead == 1 else F.mul(base, F.const(lead, device=device))
+
+
+def coset_interpolate_bitrev_sharded(x: RowShard, shift: int, mesh: Mesh) -> RowShard:
+    """Sharded twin of :func:`miden_tpu_torch.ntt.ntt.coset_interpolate_bitrev`:
+    this rank's block of natural evaluations over ``shift·H`` → its block of
+    the bit-reversed coefficients. The cross inverse-DIF stages, the local
+    stages, the global ``1/n`` and this rank's slice of the ``shift^{-i}``
+    powers."""
+    n = x.rows
+    log_n = _check_blocks(n, mesh, "coset_interpolate_bitrev_sharded")
     y = x.local
-    for s in range(log_d):
+    for s in range(mesh.size.bit_length() - 1):
         y = _dif_cross(y, _cross_twiddles(log_n, s, True, mesh), s, mesh)
     y = ntt.dft_dif(y, inverse=True)
     y = F.mul(y, F.const(gl.inv(n % gl.P), device=y.device))
-    # 2. zero-pad in bit-reversed coefficient space (block-local)
-    y = ntt._pad_bitrev_coeffs(y, added_bits)
-    # 3. coset shift: this rank's slice of the bit-reversed powers
-    if eff != 1:
-        rows = y.shape[0]
-        pw = ntt.shift_powers(eff, big_n, True, y.device)[mesh.rank * rows : (mesh.rank + 1) * rows]
-        y = F.mul(y, pw[:, None])
-    # 4. evaluate: local DIT stages, then the cross stages in reverse order
+    if shift % gl.P != 1:
+        y = F.mul(y, _bitrev_shift_powers(gl.inv(shift % gl.P), n, mesh, y.device)[:, None])
+    return RowShard(y, n)
+
+
+def evaluate_coeffs_on_coset_sharded(coeffs: RowShard, added_bits: int, shift: int, mesh: Mesh) -> RowShard:
+    """Sharded twin of :func:`miden_tpu_torch.ntt.ntt.evaluate_coeffs_on_coset`:
+    this rank's block of bit-reversed coefficients (size n) → its block of
+    the natural evaluations over ``shift·K``, ``|K| = n·2^added_bits``. The
+    zero-pad (block-local in bit-reversed order), this rank's slice of the
+    ``shift^i`` powers, the local DIT stages, then the cross stages."""
+    _check_blocks(coeffs.rows, mesh, "evaluate_coeffs_on_coset_sharded")
+    big_n = coeffs.rows << added_bits
+    y = ntt._pad_bitrev_coeffs(coeffs.local, added_bits)
+    if shift % gl.P != 1:
+        y = F.mul(y, _bitrev_shift_powers(shift, big_n, mesh, y.device)[:, None])
     y = ntt.dft_dit(y)
-    for s in reversed(range(log_d)):
-        y = _dit_cross(y, _cross_twiddles(log_n + added_bits, s, False, mesh), s, mesh)
+    log_big = big_n.bit_length() - 1
+    for s in reversed(range(mesh.size.bit_length() - 1)):
+        y = _dit_cross(y, _cross_twiddles(log_big, s, False, mesh), s, mesh)
     return RowShard(y, big_n)
+
+
+def coset_lde_sharded(evals, added_bits: int, shift_out: int, mesh: Mesh, shift_in: int = 1) -> RowShard:
+    """Sharded twin of :func:`miden_tpu_torch.ntt.ntt.coset_lde`: natural
+    evaluations over ``shift_in·H`` (the whole ``(n, w)`` tensor, which
+    every rank holds, or this rank's :class:`RowShard` of it) → this rank's
+    block of the natural evaluations over ``shift_out·K``,
+    ``|K| = n·2^added_bits``: :func:`coset_interpolate_bitrev_sharded` then
+    :func:`evaluate_coeffs_on_coset_sharded` (the two coset factors are
+    exact field products, so their product is ``coset_lde``'s one factor)."""
+    x = evals if isinstance(evals, RowShard) else shard_rows(evals, mesh)
+    coeffs = coset_interpolate_bitrev_sharded(x, shift_in, mesh)
+    return evaluate_coeffs_on_coset_sharded(coeffs, added_bits, shift_out, mesh)

@@ -44,6 +44,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..dist.mesh import RowShard, gather_at_many
 from ..field.goldilocks import to_numpy
 from ..hash import blake3, blake3_host, keccak, keccak_host, poseidon2, poseidon2_host, rescue, rescue_host
 
@@ -143,23 +144,32 @@ def aligned_width(w: int) -> int:
 class LmcsTree:
     """Prover-side committed tree: ``matrices`` (natural domain order, int64
     tensors) and digest ``layers`` bottom-up, ``layers[0]`` the leaves and
-    ``layers[-1]`` the (1, 4) root."""
+    ``layers[-1]`` the (1, 4) root.
+
+    A tree of :func:`~miden_tpu_torch.dist.lmcs_dist.build_tree_sharded`
+    holds its max-height matrices and its bottom layers as this rank's
+    :class:`~miden_tpu_torch.dist.mesh.RowShard` of them, and ``mesh``, the
+    mesh they are sharded over; the other matrices and the top layers are
+    whole."""
 
     matrices: list
     heights: list
     widths: list
     layers: list
+    mesh: object = None
 
     @property
     def height(self) -> int:
         return max(self.heights)
 
     def root(self) -> np.ndarray:
-        return to_numpy(self.layers[-1])[0]
+        return to_numpy(self.root_dev())
 
     def root_dev(self) -> torch.Tensor:
-        """Root digest as a device (4,) tensor — no host sync."""
-        return self.layers[-1][0]
+        """Root digest as a device (4,) tensor — no host sync. (Over one
+        rank the root layer is that rank's block.)"""
+        top = self.layers[-1]
+        return (top.local if isinstance(top, RowShard) else top)[0]
 
 
 def _sponge_leaves_incremental(
@@ -239,22 +249,39 @@ def gather_query_data(tree: LmcsTree, idx: torch.Tensor) -> tuple:
     """Device gather for :func:`emit_opening_hints`. ``idx``: (q,) int64
     tensor of raw query indices in this tree's domain order (duplicates
     allowed). Returns one flat tensor
-    ``[rows per matrix (q·aw)...][sibling paths (depth·q·4)]`` and its meta."""
-    parts = []
+    ``[rows per matrix (q·aw)...][sibling paths (depth·q·4)]`` and its meta.
+    On a sharded tree the rows and siblings of its sharded parts come from
+    the ranks that hold them (one collective,
+    :func:`~miden_tpu_torch.dist.mesh.gather_at_many`); the result is the
+    same on every rank and equal to one device's."""
+    parts, sharded = [], []  # sharded: (position in parts, RowShard, indices)
+
+    def take(src, at):
+        if isinstance(src, RowShard):
+            sharded.append((len(parts), src, at))
+            parts.append(None)
+        else:
+            parts.append(src.index_select(0, at))
+
+    widths = []
     for m, h in zip(tree.matrices, tree.heights):
         w = m.shape[1]
         if w == 0:
             continue
-        rows = m.index_select(0, torch.remainder(idx, h))  # (q, w)
-        aw = aligned_width(w)
-        if aw > w:
-            rows = torch.nn.functional.pad(rows, (0, aw - w))
-        parts.append(rows.reshape(-1))
+        widths.append(w)
+        take(m, torch.remainder(idx, h))
     depth = len(tree.layers) - 1
     for level in range(depth):
-        sib = torch.bitwise_xor(idx >> level, 1)
-        parts.append(tree.layers[level].index_select(0, sib).reshape(-1))
-    flat = torch.cat(parts)
+        take(tree.layers[level], torch.bitwise_xor(idx >> level, 1))
+    if sharded:
+        got = gather_at_many([(src, at) for _, src, at in sharded], tree.mesh)
+        for (pos, _, _), rows in zip(sharded, got):
+            parts[pos] = rows
+    for i, w in enumerate(widths):
+        aw = aligned_width(w)
+        if aw > w:
+            parts[i] = torch.nn.functional.pad(parts[i], (0, aw - w))
+    flat = torch.cat([p.reshape(-1) for p in parts])
     return flat, (
         int(idx.shape[0]),
         [aligned_width(w) for w in tree.widths if w],

@@ -77,16 +77,24 @@ class FusedCaptureError(RuntimeError):
 
 def use_fused(device="cuda", fused: bool | None = None) -> bool:
     """Whether :func:`~.prover.prove` takes the fused path: ``fused`` when
-    given, else on the card and not on the CPU. Never under an active
-    :func:`~..dist.context.use_mesh` (a gloo group cannot be captured); asking
-    for it there raises."""
-    if active_mesh() is not None:
+    given, else on the card and not on the CPU (``miden_tpu/stark/fused.py:71-89``).
+
+    Under an active :func:`~..dist.context.use_mesh` the same holds for an
+    NCCL mesh (each phase is captured with its NCCL collectives) and for a
+    gloo mesh on the CPU, where the phases run eagerly, as on one CPU
+    device. A gloo mesh on the card stages every collective through host
+    memory, which a CUDA graph cannot capture: there the path is never
+    fused, and asking for it raises."""
+    mesh = active_mesh()
+    on_card = torch.device(device).type == "cuda"
+    if mesh is not None and mesh.backend == "gloo" and on_card:
         if fused:
-            raise ValueError("the fused prover does not run under a mesh")
+            raise ValueError("the fused prover does not run on the card under a gloo mesh (its "
+                             "collectives go through host memory, which a CUDA graph cannot capture)")
         return False
     if fused is not None:
         return bool(fused)
-    return torch.device(device).type == "cuda"
+    return on_card
 
 
 def cached_plan():
@@ -111,7 +119,10 @@ def shape_key(lay: P.ProofLayout, inputs: dict, obuf_n: int) -> tuple:
     AIRs' classes and widths, the log heights, the parameters, the
     preprocessed tree's shapes, the shapes of the other inputs (the publics,
     the aux inputs, the bound challenger's state and input buffer), the
-    challenger's output count and the device."""
+    challenger's output count, the device and, under an active mesh, its
+    size, this rank and its backend (as ``miden_tpu``'s key holds the mesh's
+    devices)."""
+    mesh = active_mesh()
     pp = None
     tree = inputs["pp_tree"]
     if tree is not None:
@@ -128,6 +139,7 @@ def shape_key(lay: P.ProofLayout, inputs: dict, obuf_n: int) -> tuple:
         *(tuple(inputs[k].shape) for k in ("publics", "aux_inputs", "state", "ibuf")),
         obuf_n,
         str(inputs["state"].device),
+        None if mesh is None else (mesh.size, mesh.rank, mesh.backend),
     )
 
 
@@ -187,12 +199,15 @@ class _Run:
         return P.finish_proof(self.lay, self.env, idx_host, channel)
 
 
-def run_phases(lay: P.ProofLayout, inputs: dict, obuf_n: int) -> _Run:
-    """The five phases, eagerly, one span each."""
+def run_phases(lay: P.ProofLayout, inputs: dict, obuf_n: int, after=None) -> _Run:
+    """The five phases, eagerly, one span each; ``after(name)``, when
+    given, is called at the end of each phase (a measurement's hook)."""
     run = _Run(lay, inputs, obuf_n)
     for name, stage in PHASES:
         with span(f"fused phase: {name}"):
             run.phase(stage)
+        if after is not None:
+            after(name)
     return run
 
 

@@ -316,12 +316,37 @@ class ProgramInputs:
     views of an LDE (main, preprocessed, aux; None where the AIR has none)
     and the (3 + p, nd) matrix of selectors and periodic columns; ``scal``:
     the (n_fixed − n_vec,) scalar block; point i's next row is
-    ``(i + next_offset) & (nd − 1)``."""
+    ``(i + next_offset) & (nd − 1)``. With ``halo`` (a block of a quotient
+    coset that lies on several ranks) the next row of point i is
+    ``i + next_offset`` with no wrap: past ``nd`` it is row
+    ``i + next_offset − nd`` of the source's halo, the ``next_offset``
+    points that follow the block. ``halo``: one (next_offset, k) tensor per
+    source of the first three (None where the source is None), which may be
+    row-strided views."""
 
     sources: tuple
     scal: torch.Tensor
     nd: int
     next_offset: int
+    halo: tuple | None = None
+
+    def next_rows(self, s: int, nxt: torch.Tensor, col: int | None = None) -> torch.Tensor:
+        """Source ``s``'s rows (or its column ``col``) at next-row indices
+        ``nxt`` (already wrapped where there is no halo), read from the halo
+        past ``nd``."""
+        src = self.sources[s] if col is None else self.sources[s][:, col]
+        if self.halo is None:
+            return src.index_select(0, nxt)
+        halo = self.halo[s] if col is None else self.halo[s][:, col]
+        inside = nxt < self.nd
+        cur = src.index_select(0, torch.where(inside, nxt, 0))
+        ext = halo.index_select(0, torch.where(inside, 0, nxt - self.nd))
+        return torch.where(inside.reshape(-1, *([1] * (cur.ndim - 1))), cur, ext)
+
+    def next_index(self, cur: torch.Tensor) -> torch.Tensor:
+        """The next-row index of each point in ``cur``."""
+        nxt = cur + self.next_offset
+        return nxt if self.halo is not None else nxt & (self.nd - 1)
 
 
 def program_inputs(
@@ -336,10 +361,12 @@ def program_inputs(
     alpha: torch.Tensor,  # (2,)
     pp: torch.Tensor | None = None,  # (nd, pw)
     next_offset: int = 1,
+    halo: tuple | None = None,  # (main, pp, aux): (next_offset, k) each, or None
 ) -> tuple:
     """The AIR's program and what one run of it reads, ``(prog,
     ProgramInputs)``, from the arguments of
-    :func:`evaluate_folded_constraints`."""
+    :func:`evaluate_folded_constraints` (``halo``: see
+    :class:`ProgramInputs`)."""
     nd = main.shape[0]
     assert nd & (nd - 1) == 0, "the quotient domain is a power of two"
     prog = get_program(air, int(publics.shape[0]), int(randomness.shape[0]), int(aux_values.shape[0]))
@@ -348,10 +375,14 @@ def program_inputs(
                       alpha.reshape(-1), consts])
     assert prog.n_vec + scal.shape[0] == prog.n_fixed
     points = torch.stack([*selectors, *periodic])
-    return prog, ProgramInputs(
-        sources=(main, pp if air.preprocessed_width else None, aux if air.aux_width else None, points),
-        scal=scal, nd=nd, next_offset=next_offset,
-    )
+    sources = (main, pp if air.preprocessed_width else None, aux if air.aux_width else None, points)
+    if halo is not None:
+        halo = tuple(None if src is None else h for src, h in zip(sources[:3], halo))
+        for src, h in zip(sources, halo):
+            if src is not None and tuple(h.shape) != (next_offset, src.shape[1]):
+                raise ValueError(f"program_inputs: a halo of {tuple(h.shape)} for {next_offset} points "
+                                 f"of {src.shape[1]} columns")
+    return prog, ProgramInputs(sources=sources, scal=scal, nd=nd, next_offset=next_offset, halo=halo)
 
 
 def evaluate_folded_constraints(air: Air, main, aux, selectors, publics, randomness, aux_values,
@@ -404,7 +435,7 @@ def run_program_plain(prog: ConstraintProgram, inp: ProgramInputs, points=None) 
     scalar block (never broadcast) or the frame. Evaluates every point, or
     only ``points`` (an int64 tensor of point indices); returns
     (points, 2)."""
-    nd, d = inp.nd, inp.next_offset
+    nd = inp.nd
     device = inp.scal.device
     n = nd if points is None else int(points.shape[0])
     scal = list(inp.scal.unbind(0))
@@ -415,7 +446,7 @@ def run_program_plain(prog: ConstraintProgram, inp: ProgramInputs, points=None) 
         stop = min(start + blk, n)
         cur = (torch.arange(start, stop, device=device) if points is None
                else points[start:stop].to(device))
-        nxt = (cur + d) & (nd - 1)
+        nxt = inp.next_index(cur)
         vec = []
         for s, src in enumerate(inp.sources):
             if src is None:
@@ -424,7 +455,7 @@ def run_program_plain(prog: ConstraintProgram, inp: ProgramInputs, points=None) 
                 vec += list(src.index_select(1, cur).unbind(0))
                 continue
             vec += list(src.index_select(0, cur).T.contiguous().unbind(0))
-            vec += list(src.index_select(0, nxt).T.contiguous().unbind(0))
+            vec += list(inp.next_rows(s, nxt).T.contiguous().unbind(0))
         assert len(vec) == prog.n_vec
         regs = vec + scal + [None] * prog.frame_size
         for op, a, b, dst in code:
@@ -706,7 +737,7 @@ def run_schedule_plain(prog: ConstraintProgram, sched: Schedule, inp: ProgramInp
     on the CPU). Returns (nd, 2)."""
     nd, device = inp.nd, inp.scal.device
     cur = torch.arange(nd, device=device)
-    rows = (cur, (cur + inp.next_offset) & (nd - 1))
+    rows = (cur, inp.next_index(cur))
     frames = ([None] * sched.n_on, [None] * sched.n_off)
     prev = None
 
@@ -717,7 +748,9 @@ def run_schedule_plain(prog: ConstraintProgram, sched: Schedule, inp: ProgramInp
             return inp.scal[off]
         s, nx, col = off & 3, (off >> 2) & 1, off >> 3
         src = inp.sources[s]
-        return src[col] if s == 3 else src[:, col].index_select(0, rows[nx])
+        if s == 3:
+            return src[col]
+        return inp.next_rows(s, rows[1], col) if nx else src[:, col].index_select(0, rows[0])
 
     for word in sched.code[: sched.n_instr].view(np.uint64).tolist():
         op, (dkind, doff), a, b = decode(word)
@@ -741,7 +774,9 @@ Q1_KERNEL = cuda.Kernel(
     [cuda.P, cuda.I64, cuda.P, cuda.I32,
      cuda.P, cuda.P, cuda.P, cuda.P, cuda.I64, cuda.I64, cuda.I64, cuda.I64,
      cuda.I64, cuda.I64, cuda.I64, cuda.I64,
-     cuda.P, cuda.I32, cuda.I32, cuda.I32, cuda.I32, cuda.P, cuda.I64, cuda.I64, cuda.I32, cuda.I32, cuda.P],
+     cuda.P, cuda.P, cuda.P, cuda.I64, cuda.I64, cuda.I64, cuda.I64, cuda.I64, cuda.I64,
+     cuda.P, cuda.I32, cuda.I32, cuda.I32, cuda.I32, cuda.P, cuda.I64, cuda.I64, cuda.I64, cuda.I32, cuda.I32,
+     cuda.P],
     "constraints_eval_kernel",
 )
 
@@ -827,6 +862,13 @@ def q1_plan(prog: ConstraintProgram, nd: int, setting: Q1Setting = Q1_DEFAULT) -
     return Q1Plan(sched=sched, setting=setting, blocks=blocks, blocks_per_sm=per_sm, shared_bytes=smem)
 
 
+def q1_shape_key(prog: ConstraintProgram, inp: ProgramInputs) -> tuple:
+    """Q1's launch shape: the AIR and the points, and ``"halo"`` for a
+    block that reads its last points' next rows from a halo."""
+    key = (type(prog.air).__name__, inp.nd)
+    return key if inp.halo is None else (*key, "halo")
+
+
 def run_program_kernel(prog: ConstraintProgram, inp: ProgramInputs, setting: Q1Setting = Q1_DEFAULT) -> torch.Tensor:
     """Q1 on CUDA tensors: the program over every point of the coset."""
     nd = inp.nd
@@ -849,6 +891,15 @@ def run_program_kernel(prog: ConstraintProgram, inp: ProgramInputs, setting: Q1S
         ptrs.append(src.data_ptr())
         point_strides.append(src.stride(point_dim))
         col_strides.append(src.stride(1 - point_dim))
+    halo = [0] * 9  # pointers, point strides, column strides of sources 0-2
+    if inp.halo is not None:
+        for s, h in enumerate(inp.halo):
+            if h is None:
+                continue
+            if not h.is_cuda or h.dtype != torch.int64 or h.ndim != 2 or h.shape[0] != inp.next_offset:
+                raise ValueError(f"Q1 halo {s}: expected a ({inp.next_offset}, k) CUDA int64 tensor, got "
+                                 f"{h.dtype} {tuple(h.shape)} on {h.device}")
+            halo[s], halo[3 + s], halo[6 + s] = h.data_ptr(), h.stride(0), h.stride(1)
     device = inp.scal.device
     plan = q1_plan(prog, nd, setting)
     sched = plan.sched
@@ -859,7 +910,8 @@ def run_program_kernel(prog: ConstraintProgram, inp: ProgramInputs, setting: Q1S
     out = torch.empty((nd, 2), dtype=torch.int64, device=device)
     Q1_KERNEL.launch(
         code.data_ptr(), sched.n_run, inp.scal.data_ptr(), prog.n_fixed - prog.n_vec,
-        *ptrs, *point_strides, *col_strides, spill.data_ptr(), sched.n_on, setting.points, setting.block,
-        plan.blocks, out.data_ptr(), nd, inp.next_offset, *sched.outs, key=(type(prog.air).__name__, nd),
+        *ptrs, *point_strides, *col_strides, *halo, spill.data_ptr(), sched.n_on, setting.points,
+        setting.block, plan.blocks, out.data_ptr(), nd, inp.next_offset,
+        nd - 1 if inp.halo is None else -1, *sched.outs, key=q1_shape_key(prog, inp),
     )
     return out

@@ -30,12 +30,16 @@ quotient, open), each a function of a :class:`ProofLayout` (what the shape
 fixes), a channel and an environment of tensors. :mod:`.fused` runs each as
 one phase, and a final phase for the transcript payload. :func:`prove`
 hands the proof to :func:`~.fused.prove_fused` where
-:func:`~.fused.use_fused` says (on the card unless ``fused=False``, on the
-CPU only with ``fused=True``, never under an active mesh): it keeps the
-phases of the proof's shape, captured into CUDA graphs on the card at the
-shape's second proof and replayed from then on. Elsewhere it runs the
-phases once, eagerly (:func:`~.fused.prove_eager`). Both give the same
-bytes.
+:func:`~.fused.use_fused` says (on the card unless ``fused=False``, also
+under an NCCL mesh; on the CPU only with ``fused=True``; never on the card
+under a gloo mesh): it keeps the phases of the proof's shape, captured into
+CUDA graphs on the card at the shape's second proof and replayed from then
+on. Elsewhere it runs the phases once, eagerly (:func:`~.fused.prove_eager`).
+Both give the same bytes.
+
+Under an active :func:`~..dist.context.use_mesh` where :func:`shards_rows`
+holds, every stage keeps the max-height rows sharded (``dist/prover.py``
+lists what and how); the bytes are one device's.
 """
 
 from __future__ import annotations
@@ -47,8 +51,8 @@ import torch
 
 from ..dist.context import active_mesh
 from ..dist.lmcs_dist import build_tree_sharded
-from ..dist.mesh import gather_rows
-from ..dist.ntt_dist import coset_lde_sharded
+from ..dist.mesh import RowShard, block_rows, gather_rows, next_rows
+from ..dist.ntt_dist import coset_interpolate_bitrev_sharded, coset_lde_sharded, evaluate_coeffs_on_coset_sharded
 from ..field import gl
 from ..field import goldilocks as F
 from ..merkle import lmcs
@@ -105,14 +109,33 @@ def _as_device(m, device) -> torch.Tensor:
     return F.to_torch(m, device)
 
 
+def shards_rows(mesh, max_n: int, hash) -> bool:
+    """Whether a proof over ``mesh`` keeps its max-height rows sharded from
+    the first commit to the openings (``miden_tpu/stark/prover.py:112-140``,
+    ``miden_tpu/dist/lmcs_dist.py``): under a Poseidon2 tree, when the
+    ``D`` ranks split the max trace height ``max_n`` into blocks of at
+    least two rows (what the sharded NTT takes). Then every max-height LDE,
+    everything derived from one over the max LDE domain (the quotient and
+    its chunks, the DEEP evaluations, the first FRI layers) and the bottom
+    layers of their trees are :class:`~..dist.mesh.RowShard` s. A trace of
+    fewer than ``2·D`` rows is proved whole on every rank. Under the other
+    hashes the sharded LDEs are gathered into a whole tree, as in
+    ``miden_tpu``, and the proof goes on whole."""
+    return (
+        mesh is not None and hash.name == "poseidon2" and max_n % mesh.size == 0 and max_n // mesh.size >= 2
+    )
+
+
 def commit_traces(matrices: list, log_blowup: int, hash=lmcs.POSEIDON2_HASH) -> lmcs.LmcsTree:
     """LDE each trace (int64 tensor (n, w)) on its canonical coset and commit
     them into one tree.
 
     Under an active :func:`~..dist.context.use_mesh`, on the conditions of
     ``miden_tpu/stark/prover.py:112-140``, the max-height LDE runs row-sharded
-    (cross stages exchanged between ranks) and a Poseidon2 tree as per-rank
-    subtrees under gathered top layers."""
+    (cross stages exchanged between ranks); where :func:`shards_rows` holds,
+    the tree is :func:`~..dist.lmcs_dist.build_tree_sharded`'s (its
+    max-height matrices and bottom layers this rank's blocks), else the LDEs
+    are gathered into a whole tree."""
     mesh = active_mesh()
     d = mesh.size if mesh is not None else 1
     max_n = max(m.shape[0] for m in matrices)
@@ -127,19 +150,24 @@ def commit_traces(matrices: list, log_blowup: int, hash=lmcs.POSEIDON2_HASH) -> 
             ldes.append(coset_lde_sharded(m, log_blowup, shift, mesh))
         else:
             ldes.append(ntt.coset_lde(m, log_blowup, shift))
-    if mesh is not None and (max_n << log_blowup) % d == 0 and hash.name == "poseidon2":
+    if shards_rows(mesh, max_n, hash):
         return build_tree_sharded(ldes, mesh)
     return lmcs.build_tree([gather_rows(lde, mesh) for lde in ldes], hash=hash)
 
 
-def _periodic_on_domain(pattern, n, log_d, shift, device) -> torch.Tensor:
+def _periodic_on_domain(pattern, n, log_d, shift, device, start: int = 0, count: int | None = None) -> torch.Tensor:
     """Periodic column values over the quotient domain (size n·2^log_d): the
-    period-p pattern's interpolant evaluated at x^{n/p}, tiled."""
+    period-p pattern's interpolant evaluated at x^{n/p}, tiled; points
+    ``[start, start + count)`` of it (all by default)."""
     p = len(pattern)
     s_eff = gl.exp_power_of_2(shift, (n // p).bit_length() - 1)
     evals = F.table(pattern, device)[:, None]
-    small = ntt.coset_lde(evals, log_d, s_eff)  # (p·D, 1)
-    return small[:, 0].repeat(n // p)
+    small = ntt.coset_lde(evals, log_d, s_eff)[:, 0]  # (p·D,)
+    period = p << log_d
+    count = (n << log_d) if count is None else count
+    if start % period == 0 and count % period == 0:
+        return small.repeat(count // period)
+    return small.index_select(0, torch.remainder(torch.arange(start, start + count, device=device), period))
 
 
 #: quotient domains of at least this many points go through the recorded
@@ -168,75 +196,122 @@ def evaluate_quotient(
     randomness,
     aux_values,
     pp_lde=None,
+    mesh=None,
 ):
     """α-folded constraints / Z_H over the native quotient coset, (n·D, 2):
     through the AIR's recorded program where :func:`uses_program` says so,
     else through the eager evaluator. ``pp_lde`` is the AIR's committed
-    preprocessed LDE, when it declares preprocessed columns."""
-    args = (air, domain, main_lde, aux_lde, log_d, alpha, publics, randomness, aux_values, pp_lde)
+    preprocessed LDE, when it declares preprocessed columns.
+
+    Where ``main_lde`` is a :class:`~..dist.mesh.RowShard` of ``mesh``,
+    each rank evaluates the points of its block and returns them as a
+    RowShard: the current rows are its block of the LDEs, the next rows of
+    its last ``D`` points come from the next rank (:func:`_quotient_rows`)."""
+    args = (air, domain, main_lde, aux_lde, log_d, alpha, publics, randomness, aux_values, pp_lde, mesh)
     if uses_program(air, domain.trace_height, log_d):
         return evaluate_quotient_program(*args)
     return evaluate_quotient_eager(*args)
 
 
-def _coset_tables(air: Air, domain: LiftedDomain, log_d: int, device) -> tuple:
+def _quotient_points(domain: LiftedDomain, log_d: int, mesh) -> tuple:
+    """``(start, count)``: the quotient-domain points this rank evaluates:
+    all of them, or over a mesh its block of ``n·D/ranks``."""
+    nd = domain.trace_height << log_d
+    if mesh is None:
+        return 0, nd
+    return mesh.rank * (nd // mesh.size), nd // mesh.size
+
+
+def _coset_tables(air: Air, domain: LiftedDomain, log_d: int, device, mesh=None) -> tuple:
     """The quotient coset's selectors (is-first, is-last, is-transition),
-    periodic columns and 1/Z_H, each (n·D,). Z_H(x_i) = shift^n·ω_D^{i mod
-    D} − 1 takes D distinct values."""
+    periodic columns and 1/Z_H, each (count,) over this rank's points
+    (:func:`_quotient_points`; never the whole domain's table over a mesh).
+    Z_H(x_i) = shift^n·ω_D^{i mod D} − 1 takes D distinct values; a block
+    starts at a multiple of D."""
     n = domain.trace_height
     d = 1 << log_d
     nd = n * d
+    start, count = _quotient_points(domain, log_d, mesh)
     shift = domain.lde_shift
-    pts = pcs.coset_points(nd.bit_length() - 1, shift, device)
+    pts = pcs.coset_points(nd.bit_length() - 1, shift, device, start, count)
     z_vals = []
     v = gl.exp_power_of_2(shift, domain.log_trace_height)
     wd = gl.two_adic_generator(log_d) if log_d else 1
     for _ in range(d):
         z_vals.append(gl.sub(v, 1))
         v = gl.mul(v, wd)
-    z_tile = F.table(z_vals, device).repeat(n)
+    z_tile = F.table(z_vals, device).repeat(count // d)
     last_den_raw = F.sub(pts, F.const(gl.inv(domain.trace_generator), device=device))
     sels = (
         F.mul(z_tile, F.inv(F.sub(pts, F.const(1, device=device)))),
         F.mul(z_tile, F.inv(last_den_raw)),
         last_den_raw,
     )
-    periodic = [_periodic_on_domain(p, n, log_d, shift, device) for p in air.periodic_columns]
+    periodic = [_periodic_on_domain(p, n, log_d, shift, device, start, count) for p in air.periodic_columns]
     inv_z = [gl.inv(zv) for zv in z_vals]
-    inv_tile = F.table(inv_z, device).repeat(n)
+    inv_tile = F.table(inv_z, device).repeat(count // d)
     return sels, periodic, inv_tile
+
+
+def _quotient_rows(domain: LiftedDomain, log_d: int, ldes, mesh) -> tuple:
+    """The quotient coset's rows of each LDE in ``ldes`` (None stays None):
+    ``(current, halo)``. Alone, ``current`` is the row-strided view of the
+    whole LDE and ``halo`` is None (point r's next row is point
+    ``(r + D) mod nd``). Over a mesh, ``current`` is the strided view of
+    this rank's block and ``halo`` the next ``D`` points, from the next
+    rank's block (``D·stride`` LDE rows, :func:`~..dist.mesh.next_rows`):
+    the next rows of the block's last ``D`` points."""
+    nd = domain.trace_height << log_d
+    stride = domain.lde_height // nd
+    if mesh is None:
+        return tuple(None if m is None else m[::stride] for m in ldes), None
+    rows, halo = domain.lde_height, (1 << log_d) * stride
+    cur = tuple(None if m is None else block_rows(m, rows, mesh)[::stride] for m in ldes)
+    nxt = tuple(None if m is None else next_rows(m, rows, halo, mesh)[::stride] for m in ldes)
+    return cur, nxt
+
+
+def _lde_device(m):
+    return (m.local if isinstance(m, RowShard) else m).device
 
 
 def quotient_program_inputs(
     air: Air, domain: LiftedDomain, main_lde, aux_lde, log_d: int, alpha, publics, randomness,
-    aux_values, pp_lde=None,
+    aux_values, pp_lde=None, mesh=None,
 ) -> tuple:
     """``(prog, inputs, 1/Z_H)`` of :func:`evaluate_quotient_program`: the
-    AIR's program and its run over the quotient coset, read straight out of
-    the LDEs (a row-strided view; current and next rows, with no transposed
-    or rolled copy), and the (n·D,) inverse vanishing values."""
-    nd = domain.trace_height << log_d
-    stride = domain.lde_height // nd
-    sels, periodic, inv_tile = _coset_tables(air, domain, log_d, main_lde.device)
+    AIR's program and its run over the quotient coset (over a mesh, this
+    rank's points), read straight out of the LDEs (a row-strided view;
+    current and next rows, with no transposed or rolled copy), and the
+    inverse vanishing values."""
+    # in the order of the program's sources: main, preprocessed, aux
+    cur, halo = _quotient_rows(domain, log_d, (main_lde, pp_lde, aux_lde if air.aux_width else None), mesh)
+    sels, periodic, inv_tile = _coset_tables(air, domain, log_d, _lde_device(main_lde), mesh)
     prog, inp = interp.program_inputs(
-        air, main_lde[::stride], aux_lde[::stride] if air.aux_width else None, sels, publics,
-        randomness, aux_values, periodic, alpha,
-        pp=pp_lde[::stride] if pp_lde is not None else None, next_offset=1 << log_d,
+        air, cur[0], cur[2], sels, publics, randomness, aux_values, periodic, alpha, pp=cur[1],
+        next_offset=1 << log_d, halo=halo,
     )
     return prog, inp, inv_tile
 
 
+def _as_rows(q, domain: LiftedDomain, log_d: int, mesh):
+    """A quotient's values as the prover holds them: whole, or over a mesh
+    this rank's block as a RowShard."""
+    return q if mesh is None else RowShard(q, domain.trace_height << log_d)
+
+
 def evaluate_quotient_program(
     air: Air, domain: LiftedDomain, main_lde, aux_lde, log_d: int, alpha, publics, randomness,
-    aux_values, pp_lde=None,
+    aux_values, pp_lde=None, mesh=None,
 ):
     """:func:`evaluate_quotient` through the AIR's recorded constraint
     program (``miden_tpu``'s ``_evaluate_quotient_interp``): Q1 on the card,
     the plain twin on the CPU."""
+    mesh = mesh if isinstance(main_lde, RowShard) else None
     prog, inp, inv_tile = quotient_program_inputs(
-        air, domain, main_lde, aux_lde, log_d, alpha, publics, randomness, aux_values, pp_lde
+        air, domain, main_lde, aux_lde, log_d, alpha, publics, randomness, aux_values, pp_lde, mesh
     )
-    return F.ext_mul_base(interp.run_program(prog, inp), inv_tile)
+    return _as_rows(F.ext_mul_base(interp.run_program(prog, inp), inv_tile), domain, log_d, mesh)
 
 
 #: log2 of the quotient-domain points the eager evaluator takes at once.
@@ -249,26 +324,31 @@ QUOTIENT_BLOCK_LOG = 20
 
 def evaluate_quotient_eager(
     air: Air, domain: LiftedDomain, main_lde, aux_lde, log_d: int, alpha, publics, randomness,
-    aux_values, pp_lde=None,
+    aux_values, pp_lde=None, mesh=None,
 ):
     """:func:`evaluate_quotient` with torch ops (the ``_evaluate_quotient_dev``
     formulation of ``miden_tpu``): every constraint is evaluated over blocks
     of 2^``QUOTIENT_BLOCK_LOG`` coset points at once."""
-    device = main_lde.device
+    mesh = mesh if isinstance(main_lde, RowShard) else None
+    device = _lde_device(main_lde)
     d = 1 << log_d
-    nd = domain.trace_height * d
-    stride = domain.lde_height // nd
+    cur, halo = _quotient_rows(domain, log_d, (main_lde, pp_lde, aux_lde), mesh)
 
-    # columns as contiguous rows: (w, nd), and the next-row view rolled by D
-    main_t = main_lde[::stride].T.contiguous()
-    main_next = torch.roll(main_t, -d, dims=1)
-    if aux_lde is not None:
-        aux_t = aux_lde[::stride].T.contiguous()
-        aux_next = torch.roll(aux_t, -d, dims=1)
+    def columns(i):
+        """(w, nd) columns as contiguous rows, and the next-row view: rolled
+        by D, or shifted by D with the halo at the end."""
+        t = cur[i].T.contiguous()
+        if halo is None:
+            return t, torch.roll(t, -d, dims=1)
+        return t, torch.cat([t[:, d:], halo[i].T], dim=1)
+
+    main_t, main_next = columns(0)
     if pp_lde is not None:
-        pp_t = pp_lde[::stride].T.contiguous()
-        pp_next = torch.roll(pp_t, -d, dims=1)
-    sels, periodic, inv_tile = _coset_tables(air, domain, log_d, device)
+        pp_t, pp_next = columns(1)
+    if aux_lde is not None:
+        aux_t, aux_next = columns(2)
+    nd = main_t.shape[1]
+    sels, periodic, inv_tile = _coset_tables(air, domain, log_d, device, mesh)
 
     out = torch.empty((nd, 2), dtype=torch.int64, device=device)
     block = min(nd, 1 << QUOTIENT_BLOCK_LOG)
@@ -303,40 +383,58 @@ def evaluate_quotient_eager(
         assert acc is not None, "AIR produced no constraints"
         val = acc.val if acc.kind == "ext" else F.ext_from_base(acc.val)
         out[rows] = F.ext_mul_base(val.expand(block, 2), inv_tile[rows])
-    return out
+    return _as_rows(out, domain, log_d, mesh)
 
 
-def upsample_evals(evals, shift: int, added_bits: int):
+def upsample_evals(evals, shift: int, added_bits: int, mesh=None):
     """LDE ext evals (natural, shift s) from size L to L·2^added_bits on the
-    same shift (reference quotient.rs:45 upsample)."""
+    same shift (reference quotient.rs:45 upsample); a RowShard of ``mesh``
+    through the sharded NTT's two halves."""
+    if isinstance(evals, RowShard):
+        coeffs = coset_interpolate_bitrev_sharded(evals, shift, mesh)
+        return evaluate_coeffs_on_coset_sharded(coeffs, added_bits, shift, mesh)
     coeffs = ntt.coset_interpolate_bitrev(evals, shift)
     return ntt.evaluate_coeffs_on_coset(coeffs, added_bits, shift)
 
 
-def _accumulate_step(reps: int, acc, q, beta):
-    """acc ← lift(acc)·β + q (Horner across AIRs under cyclic lifting)."""
+def _accumulate_step(reps: int, acc, q, beta, mesh=None):
+    """acc ← lift(acc)·β + q (Horner across AIRs under cyclic lifting). A
+    RowShard ``q`` takes this rank's rows of the lifted acc, ``(k·S + j) mod
+    h`` (acc is whole while it is shorter)."""
+    if isinstance(q, RowShard):
+        lifted = block_rows(acc, q.rows, mesh)
+        return RowShard(F.ext_add(F.ext_mul(lifted, beta), q.local), q.rows)
     return F.ext_add(F.ext_mul(acc.repeat(reps, 1), beta), q)
 
 
-def _quotient_chunks_dev(acc, domain: LiftedDomain, log_d: int, log_blowup: int):
+def _quotient_chunks_dev(acc, domain: LiftedDomain, log_d: int, log_blowup: int, mesh=None):
     """Split Q (evals over (s_K, N·D)) into D contiguous degree-<N chunks and
     LDE them on (s_K, N·B) as one (N·B, 2D) matrix. Chunk t is the stride-D
-    slice of the bit-reversed coefficients starting at bitrev_D(t)."""
+    slice of the bit-reversed coefficients starting at bitrev_D(t).
+
+    A RowShard ``acc`` of ``mesh`` stays sharded: the sharded interpolation,
+    the regrouping of each D consecutive coefficients into one row (local to
+    a block: a block of ``N·D/ranks`` coefficients holds whole rows, since
+    the ranks divide N where :func:`shards_rows` holds), the sharded
+    evaluation."""
     n = domain.trace_height
     d = 1 << log_d
+    br = ntt.bitrev_index(d, _lde_device(acc))
+    if isinstance(acc, RowShard):
+        coeffs = coset_interpolate_bitrev_sharded(acc, domain.lde_shift, mesh).local
+        chunk_coeffs = RowShard(coeffs.reshape(-1, d, 2).index_select(1, br).reshape(-1, 2 * d), n)
+        return evaluate_coeffs_on_coset_sharded(chunk_coeffs, log_blowup, domain.lde_shift, mesh)
     coeffs_br = ntt.coset_interpolate_bitrev(acc, domain.lde_shift).reshape(n, d, 2)
-    br = ntt.bitrev_index(d, acc.device)
     chunk_coeffs = coeffs_br.index_select(1, br).reshape(n, 2 * d)  # columns t0.c0, t0.c1, t1.c0, ...
     return ntt.evaluate_coeffs_on_coset(chunk_coeffs, log_blowup, domain.lde_shift)
 
 
-def commit_quotient(acc, domain: LiftedDomain, log_d: int, log_blowup: int, hash=lmcs.POSEIDON2_HASH):
-    """Commit the D quotient chunks' LDEs as one 2D-column matrix; under an
-    active mesh a Poseidon2 tree is built row-sharded
+def commit_quotient(acc, domain: LiftedDomain, log_d: int, log_blowup: int, hash=lmcs.POSEIDON2_HASH, mesh=None):
+    """Commit the D quotient chunks' LDEs as one 2D-column matrix; a
+    RowShard ``acc`` of ``mesh`` is committed as a sharded tree
     (``miden_tpu/stark/prover.py:440-455``)."""
-    chunks = _quotient_chunks_dev(acc, domain, log_d, log_blowup)
-    mesh = active_mesh()
-    if mesh is not None and chunks.shape[0] % mesh.size == 0 and hash.name == "poseidon2":
+    chunks = _quotient_chunks_dev(acc, domain, log_d, log_blowup, mesh)
+    if isinstance(chunks, RowShard):
         return build_tree_sharded([chunks], mesh)
     return lmcs.build_tree([chunks], hash=hash)
 
@@ -478,6 +576,7 @@ def stage_quotient(lay: ProofLayout, channel, env: dict) -> None:
     the quotient commitment and the OOD point z."""
     main_tree, aux_tree, pp_tree = env["main_tree"], env["aux_tree"], env["pp_tree"]
     rand_d, aux_values = env["randomness"], env["aux_values"]
+    mesh = main_tree.mesh
     acc = None
     for k, i in enumerate(lay.order):
         air = lay.airs[i]
@@ -494,15 +593,20 @@ def stage_quotient(lay: ProofLayout, channel, env: dict) -> None:
                 rand_d[: air.num_randomness],
                 aux_values[k],
                 pp_tree.matrices[lay.pp_for_air[i]] if air.preprocessed_width else None,
+                mesh,
             )
             if lay.log_ds[k] < lay.log_d:
-                q = upsample_evals(q, dom.lde_shift, lay.log_d - lay.log_ds[k])
+                q = upsample_evals(q, dom.lde_shift, lay.log_d - lay.log_ds[k], mesh)
             if acc is None:
                 acc = q
             else:
-                acc = _accumulate_step((dom.trace_height << lay.log_d) // acc.shape[0], acc, q, env["beta"])
+                acc = _accumulate_step(
+                    (dom.trace_height << lay.log_d) // acc.shape[0], acc, q, env["beta"], mesh
+                )
     with span("commit to quotient poly chunks"):
-        tree = commit_quotient(acc, lay.max_domain, lay.log_d, lay.params.log_blowup, hash=lay.params.lmcs_hash())
+        tree = commit_quotient(
+            acc, lay.max_domain, lay.log_d, lay.params.log_blowup, hash=lay.params.lmcs_hash(), mesh=mesh
+        )
     channel.send_commitment(tree.root_dev())
     z = channel.sample_ext()
     channel.check("ood point outside domains", _ood_valid_flag(lay.max_domain, z))
@@ -553,9 +657,10 @@ def prove(
     ``fused``: whether the proof goes through :func:`~.fused.prove_fused`,
     which keeps the phases of the proof's shape: on the card their CUDA
     graphs, captured at the shape's second proof and replayed from then
-    on. None leaves it to :func:`~.fused.use_fused`: fused on the card,
-    not on the CPU nor under an active mesh. Otherwise the phases run once,
-    eagerly, and nothing is kept. Both give the same bytes."""
+    on. None leaves it to :func:`~.fused.use_fused`: fused on the card
+    (also under an NCCL mesh), not on the CPU nor on the card under a gloo
+    mesh. Otherwise the phases run once, eagerly, and nothing is kept. Both
+    give the same bytes."""
     from .fused import prove_eager, prove_fused, use_fused
 
     run = prove_fused if use_fused(device, fused) else prove_eager

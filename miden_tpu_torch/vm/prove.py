@@ -222,6 +222,37 @@ def vm_statement(
     )
 
 
+def trace_program(program: Program, stack_inputs=None, advice: AdviceProvider | None = None, **opts) -> tuple:
+    """Execute ``program`` on the host: ``(output, trace, statement,
+    traces)``, the last two what :func:`~..stark.prover.prove` takes."""
+    with span("execute and trace"):
+        out, trace = execute_and_trace(program, stack_inputs, advice, **opts)
+    statement = vm_statement(
+        trace.program_hash,
+        trace.stack_inputs,
+        trace.stack_outputs,
+        trace.kernel_digests,
+        trace.deferred_root,
+    )
+    return out, trace, statement, [trace.matrix, trace.chiplets, trace.poseidon]
+
+
+def vm_proof(out: ExecutionOutput, trace, stark_proof) -> "VmProof":
+    """The :class:`VmProof` of a traced program and its STARK proof."""
+    wire = None
+    if out.deferred_state is not None and any(trace.deferred_root):
+        wire = out.deferred_state.to_wire().to_bytes()
+    return VmProof(
+        program_hash=trace.program_hash,
+        stack_inputs=list(trace.stack_inputs),
+        stack_outputs=list(trace.stack_outputs),
+        kernel_digests=tuple(trace.kernel_digests),
+        stark=stark_proof,
+        deferred_root=tuple(trace.deferred_root),
+        deferred_wire=wire,
+    )
+
+
 def prove_program(
     program: Program,
     stack_inputs: list[int] | StackInputs | None = None,
@@ -239,35 +270,9 @@ def prove_program(
     eagerly on the CPU; True or False forces one path."""
     from ..stark.prover import prove
 
-    with span("execute and trace"):
-        out, trace = execute_and_trace(program, stack_inputs, advice, **opts)
-    statement = vm_statement(
-        trace.program_hash,
-        trace.stack_inputs,
-        trace.stack_outputs,
-        trace.kernel_digests,
-        trace.deferred_root,
-    )
-    res = prove(
-        params,
-        statement,
-        [trace.matrix, trace.chiplets, trace.poseidon],
-        DuplexChallenger(protocol_seed()),
-        device=device,
-        fused=fused,
-    )
-    wire = None
-    if out.deferred_state is not None and any(trace.deferred_root):
-        wire = out.deferred_state.to_wire().to_bytes()
-    return out, VmProof(
-        program_hash=trace.program_hash,
-        stack_inputs=list(trace.stack_inputs),
-        stack_outputs=list(trace.stack_outputs),
-        kernel_digests=tuple(trace.kernel_digests),
-        stark=res.proof,
-        deferred_root=tuple(trace.deferred_root),
-        deferred_wire=wire,
-    )
+    out, trace, statement, traces = trace_program(program, stack_inputs, advice, **opts)
+    res = prove(params, statement, traces, DuplexChallenger(protocol_seed()), device=device, fused=fused)
+    return out, vm_proof(out, trace, res.proof)
 
 
 def verify_program(

@@ -170,11 +170,80 @@ def test_prove_sharded_bytes_equal_single_device_and_miden_tpu(work, ranks, port
     single = proof_to_bytes(port_proof.proof)
     jax_bytes, jax_digest = work["jax_proof"].result()
     assert jax_bytes == single
-    for k in range(4):
+    assert len(ranks) == 8
+    for k in range(8):
         got, digest = ranks[k]["proof"]
         assert got == single, f"rank {k}"
         assert digest == port_proof.digest == jax_digest
-    assert all("proof" not in r for r in ranks[4:])
+
+
+def test_prove_sharded_fused_on_cpu_ranks_gives_the_same_bytes(ranks, port_proof):
+    """``fused=True`` under the gloo mesh on the CPU runs the plan's phases
+    eagerly on every rank: the same bytes."""
+    from miden_tpu_torch.stark.proof_io import proof_to_bytes
+
+    single = proof_to_bytes(port_proof.proof)
+    for k, r in enumerate(ranks):
+        assert r["fused_proof"] == single, f"rank {k}"
+
+
+def test_prove_sharded_keeps_every_max_height_tensor_row_sharded(ranks):
+    """After ``stage_open`` each of the 8 ranks holds every max-height
+    matrix, every tree layer below the top log2 8 and the first FRI layers
+    of the main, aux, quotient and FRI trees as a RowShard of N/8 rows:
+    1/8 of one device's bytes of them."""
+    for k, r in enumerate(ranks):
+        held = r["held"]
+        assert held["not_sharded"] == [], f"rank {k}: {held['not_sharded']}"
+        assert held["local"] * 8 == held["whole"] > 0, f"rank {k}: {held}"
+
+
+@pytest.mark.parametrize("d", [2, 4, 8])
+@pytest.mark.parametrize("check", R.STAGE_CHECKS)
+def test_sharded_stage_equals_single_device(ranks, check, d):
+    """Each sharded piece (tests/torch_dist_ranks.py ``stage_checks``) is its
+    one-device function's result, bit for bit, on every rank of a mesh of
+    ``d``."""
+    for k in range(d):
+        assert ranks[k]["stages"][d][check], f"{check} on rank {k} of {d}"
+
+
+def test_preprocessed_statement_under_a_mesh_equals_single_device(ranks):
+    """The square-LUT statement (its preprocessed tree whole on every rank,
+    read by the sharded quotient at this rank's rows) proved under a mesh of
+    2 equals the single-device proof."""
+    from miden_tpu_torch.bench_airs import square_lut_statement
+    from miden_tpu_torch.stark import TEST_PARAMS, build_preprocessed, prove
+    from miden_tpu_torch.stark.proof_io import proof_to_bytes
+    from miden_tpu_torch.transcript import challenger as C
+
+    statement, traces = square_lut_statement(R.STAGE_LOG_N, device="cpu")
+    pp = build_preprocessed(statement, TEST_PARAMS, device="cpu")
+    want = proof_to_bytes(prove(TEST_PARAMS, statement, traces, C.DuplexChallenger(SEED), preprocessed=pp,
+                                device="cpu").proof)
+    assert [r["preprocessed_proof"] for r in ranks[:2]] == [want, want]
+
+
+@pytest.mark.parametrize("backend,device,fused,want", [
+    ("gloo", "cuda", None, False), ("gloo", "cuda", False, False), ("gloo", "cuda", True, "raises"),
+    ("gloo", "cpu", None, False), ("gloo", "cpu", True, True), ("nccl", "cuda", None, True),
+    ("nccl", "cuda", False, False),
+])
+def test_use_fused_under_a_mesh(backend, device, fused, want):
+    """Under an NCCL mesh on the card the fused phases are the default (they
+    capture the NCCL collectives); under a gloo mesh on the card they never
+    run (its collectives go through host memory) and asking for them
+    raises; on the CPU a gloo mesh runs them eagerly when asked."""
+    from types import SimpleNamespace
+
+    from miden_tpu_torch.stark.fused import use_fused
+
+    with use_mesh(SimpleNamespace(backend=backend)):
+        if want == "raises":
+            with pytest.raises(ValueError, match="gloo mesh"):
+                use_fused(device, fused)
+        else:
+            assert use_fused(device, fused) is want
 
 
 def test_both_verifiers_accept_prove_sharded(ranks):
@@ -201,17 +270,20 @@ def test_replicate_broadcasts_rank_0(ranks):
 
 
 def test_bench_commit_check_holds_on_cpu_ranks(ranks):
-    """The check chip_smoke phase 12b runs on the card (every rank's LDE rows,
-    layers and whole matrices against one device), here at a small size."""
+    """The sharded commit check chip_smoke phase 12d's ranks run on the card
+    (every rank's LDE rows, layers and matrices, the sharded ones gathered,
+    against one device), here at a small size."""
     for k, r in enumerate(ranks):
         assert r["bench_commit"] == {"rows_equal": True, "layers_equal": True, "matrices_equal": True}, k
 
 
 def test_ranks_exchanged_and_gathered(ranks):
     """Every rank of the 8-rank mesh sent blocks in the cross stages and
-    gathered the others' rows."""
+    gathered the others' rows, and moved bytes through every collective of
+    the sharded stages."""
     for k, r in enumerate(ranks):
         assert r["traffic"]["exchange"] > 0 and r["traffic"]["gather"] > 0, f"rank {k}: {r['traffic']}"
+        assert all(r["traffic"][key] > 0 for key in ("halo", "all_to_all", "partials", "gather_at")), k
 
 
 # -- no silent CPU; the context --------------------------------------------------------

@@ -124,14 +124,18 @@ def test_fused_proof_runs_the_five_phases_and_verifies():
 
 
 def test_use_fused_policy():
+    from types import SimpleNamespace
+
     assert use_fused("cuda") and use_fused(torch.device("cuda:0"))
     assert not use_fused("cpu")
     assert use_fused("cpu", fused=True) and not use_fused("cuda", fused=False)
-    with use_mesh(object()):
+    with use_mesh(SimpleNamespace(backend="gloo")):  # its collectives go through host memory
         assert not use_fused("cuda")
         assert not use_fused("cpu", fused=False)
         with pytest.raises(ValueError):
             use_fused("cuda", fused=True)
+    with use_mesh(SimpleNamespace(backend="nccl")):  # captured with its collectives
+        assert use_fused("cuda") and not use_fused("cuda", fused=False)
 
 
 def test_fused_false_takes_the_eager_path(monkeypatch):

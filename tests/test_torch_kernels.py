@@ -315,6 +315,46 @@ def test_constraint_kernel_matches_plain(which, stride):
     assert _equal(got, want)
 
 
+@pytest.mark.parametrize("which", ["core", "poseidon2", "square_lut"])
+def test_constraint_kernel_with_a_halo_matches_plain(which):
+    """Q1 on a block of a sharded quotient coset: the last D points read
+    their next rows from a halo (strided views of other tensors), as the
+    plain twin does; equal to the twin over the block and to the whole
+    coset's run over the same rows."""
+    from miden_tpu_torch.stark import interp
+
+    air = _q1_airs()[which]
+    nd, d, stride = 1 << 10, 8, 2
+    rng = np.random.default_rng(len(which) + 70)
+
+    def whole(k):
+        return _rand(rng, (2 * nd * stride, k))[::stride] if k else None
+
+    srcs = [whole(air.width), whole(air.preprocessed_width), whole(2 * air.aux_width)]
+    sels = tuple(_rand(rng, (2 * nd,)) for _ in range(3))
+    periodic = [_rand(rng, (2 * nd,)) for _ in air.periodic_columns]
+    scal = (_rand(rng, (max(40, air.num_public_values),)), _rand(rng, (air.num_randomness, 2)),
+            _rand(rng, (air.num_aux_values, 2)))
+    alpha = _rand(rng, (2,))
+
+    def inputs(rows, halo=None):
+        cut = [None if x is None else x[rows] for x in srcs]
+        return interp.program_inputs(
+            air, cut[0], cut[2], tuple(x[rows] for x in sels), *scal, [x[rows] for x in periodic], alpha,
+            pp=cut[1], next_offset=d, halo=halo)
+
+    first = slice(0, nd)
+    halo = tuple(None if x is None else x[nd : nd + d] for x in srcs)
+    prog, inp = inputs(first, halo)
+    before = interp.Q1_KERNEL.launches
+    got = interp.run_program_kernel(prog, inp)
+    torch.cuda.synchronize()
+    assert interp.Q1_KERNEL.launches == before + 1
+    assert _equal(got, interp.run_program_plain(prog, inp))
+    prog_w, inp_w = inputs(slice(0, 2 * nd))
+    assert _equal(got, interp.run_program_kernel(prog_w, inp_w)[:nd])
+
+
 def _q1_case(which: str, nd: int, d: int, seed: int):
     """(program, ProgramInputs) of an AIR of :func:`_q1_airs` on random card
     inputs, its LDE sources row-strided views (stride 2)."""
