@@ -1,0 +1,10 @@
+"""K3 (`csrc/poseidon2.cu`) `poseidon2_permute`: see `harness/work.py` `permute`."""
+
+from __future__ import annotations
+
+from benchmarks.harness import work
+
+
+def work_of(key: tuple) -> tuple:
+    """(bytes, 32-bit multiplies) of one launch at the shape ``key``."""
+    return work.permute("poseidon2", key)

@@ -1,0 +1,10 @@
+"""R2 (`csrc/rescue.cu`, RPX-256) `rpx_compress_rows`: see `harness/work.py` `compress_rows`."""
+
+from __future__ import annotations
+
+from benchmarks.harness import work
+
+
+def work_of(key: tuple) -> tuple:
+    """(bytes, 32-bit multiplies) of one launch at the shape ``key``."""
+    return work.compress_rows("rpx", key)
