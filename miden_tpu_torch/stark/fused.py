@@ -22,7 +22,9 @@ The transcript kinds and labels of a phase are fixed by the statement's
 shape. Binding the statement into the challenger runs eagerly before the
 first phase; the host tail after the readback (the gathers at the query
 indices, the second readback, the hint assembly of
-``_query_phase_and_finalize``) runs eagerly after the last.
+``_query_phase_and_finalize``) runs eagerly after the last. The host steps
+around the phases are spans too: "upload traces", "bind statement", "copy
+graph inputs" (a replay's), "transcript readback" and "query phase".
 
 :func:`prove_eager` runs the phases once, eagerly, and keeps nothing: the
 path of :func:`~.prover.prove` where :func:`use_fused` does not hold.
@@ -146,10 +148,12 @@ def shape_key(lay: P.ProofLayout, inputs: dict, obuf_n: int) -> tuple:
 def _prepare(params, statement, traces, challenger, preprocessed, device) -> tuple:
     """The proof's layout, its inputs on ``device`` (the tensors the phases
     read) and the bound challenger's output count."""
-    traces = [P._as_device(t, device) for t in traces]
+    with span("upload traces"):
+        traces = [P._as_device(t, device) for t in traces]
     lay = P.ProofLayout.of(params, statement, traces, preprocessed)
-    dch = P.bind_statement(statement, challenger, preprocessed, lay.log_heights, device)
-    publics, aux_inputs = P.statement_tensors(statement, device)
+    with span("bind statement"):
+        dch = P.bind_statement(statement, challenger, preprocessed, lay.log_heights, device)
+        publics, aux_inputs = P.statement_tensors(statement, device)
     inputs = {
         "traces": traces, "publics": publics, "aux_inputs": aux_inputs,
         "pp_tree": preprocessed.tree if preprocessed is not None else None,
@@ -193,9 +197,9 @@ class _Run:
         """The readback of the final payload and the host tail."""
         with span("transcript readback"):
             host = F.to_numpy(self.env["payload"])
-        channel = DeviceProverChannel(None)
-        channel._entries, channel._checks = self.entries, self.checks
-        idx_host = channel.read_back(host, self.env["idx"].numel())
+            channel = DeviceProverChannel(None)
+            channel._entries, channel._checks = self.entries, self.checks
+            idx_host = channel.read_back(host, self.env["idx"].numel())
         return P.finish_proof(self.lay, self.env, idx_host, channel)
 
 
@@ -267,8 +271,9 @@ class FusedPlan:
             return run_phases(self.lay, inputs, self.obuf_n)
         if not self.captured:
             self._capture(inputs)
-        for dst, src in zip(_flat(self.inputs), _flat(inputs)):
-            dst.copy_(src)
+        with span("copy graph inputs"):
+            for dst, src in zip(_flat(self.inputs), _flat(inputs)):
+                dst.copy_(src)
         for ph in self.phases:
             with span(f"fused phase: {ph.name}"):
                 ph.graph.replay()

@@ -707,6 +707,5 @@ def _query_phase_and_finalize(
             n = flat.shape[0]
             lmcs.emit_opening_hints(channel, host_vals[off : off + n], meta, raw)
             off += n
-
-    digest, data = channel.finalize()
+        digest, data = channel.finalize()
     return StarkOutput(digest=digest, proof=Proof(log_heights=log_heights, data=data))

@@ -1,13 +1,23 @@
 """Phase spans, name-compatible with ``miden_tpu.utils.tracing``.
 
 ``span(name)`` marks a pipeline phase ("commit to main traces", "evaluate
-constraints", "DEEP reduce + assemble", "FRI round commit", ...). Spans cost
-nothing unless a :class:`Recorder` is active (``with Recorder() as rec:``).
-While one is, ``torch.cuda.synchronize()`` runs at each span edge on the
-card, so a span's time is the device work queued inside it (the prover is
-otherwise asynchronous and the time pools in the final readback); a traced
-run is therefore never a timed one. While a CUDA graph is captured, spans
-neither synchronize nor record: nothing runs then.
+constraints", "DEEP reduce + assemble", "FRI round commit", ...) or a host
+step around the phases ("execute and trace", "upload traces", "bind
+statement", "transcript readback", "query phase", ...). A span does two
+things, each only while what it serves is active, and costs one check and
+nothing else while neither is:
+
+- While a :class:`Recorder` is active (``with Recorder() as rec:``), it
+  records its time. ``torch.cuda.synchronize()`` runs at each span edge on
+  the card, so a span's time is the device work queued inside it (the
+  prover is otherwise asynchronous and the time pools in the final
+  readback); a recorded run is therefore never a timed one.
+- While ``torch.profiler`` records, it opens a host event ``miden: <name>``
+  on the profiler's clock, the one the card's kernels, copies and fills are
+  on, so a stretch in which the card is idle can be put down to the step
+  the host was in. Annotating never synchronizes.
+
+While a CUDA graph is captured, spans do neither: nothing runs then.
 """
 
 from __future__ import annotations
@@ -16,8 +26,12 @@ import contextlib
 import time
 
 import torch
+from torch.autograd import profiler as _profiler
 
 from .cuda import capturing
+
+#: what the profiler's host events of the program's spans are named by
+ANNOTATION_PREFIX = "miden: "
 
 _recorders: list = []
 
@@ -56,18 +70,37 @@ def _sync() -> None:
         torch.cuda.synchronize()
 
 
+def _annotation(name: str, fields: dict):
+    """The profiler's host event of a span, its fields as one args string
+    (``rows=262144, air=CoreVmAir``), which the profiler keeps where it
+    records inputs (``record_shapes=True``). A function-scope record, not
+    ``record_function``: that one is a user annotation, of which the
+    profiler also makes a device event over the kernels launched inside it,
+    and device events are what the card's busy time is read from."""
+    args = {"args": ", ".join(f"{k}={v}" for k, v in fields.items())} if fields else {}
+    return torch._C._profiler._RecordFunctionFast(ANNOTATION_PREFIX + name, [], args)
+
+
 @contextlib.contextmanager
 def span(name: str, **fields):
-    """A phase of the pipeline; ``fields`` describe it (rows, bits, ...)."""
-    if not _recorders or capturing():
+    """A phase of the pipeline or a host step; ``fields`` describe it (rows,
+    bits, instance, air, ...). A :class:`Recorder` keeps the time and
+    ``air``; the profiler's event ``miden: <name>`` carries every field in
+    its args."""
+    annotate = _profiler._is_profiler_enabled
+    if not (_recorders or annotate) or capturing():
         yield
         return
-    _sync()
-    t0 = time.perf_counter()
-    try:
-        yield
+    with _annotation(name, fields) if annotate else contextlib.nullcontext():
+        if not _recorders:
+            yield
+            return
         _sync()
-    finally:
-        dt = time.perf_counter() - t0
-        for rec in _recorders:
-            rec.add(name, dt, fields.get("air"))
+        t0 = time.perf_counter()
+        try:
+            yield
+            _sync()
+        finally:
+            dt = time.perf_counter() - t0
+            for rec in _recorders:
+                rec.add(name, dt, fields.get("air"))

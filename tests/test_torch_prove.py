@@ -239,5 +239,9 @@ def test_spans_carry_the_reference_phase_names():
         "commit to main traces", "build aux traces", "commit to aux traces", "evaluate constraints",
         "commit to quotient poly chunks", "evaluate at OOD points", "DEEP reduce + assemble",
         "FRI round commit", "FRI fold", "query grind", "query phase",
+        "upload traces", "bind statement", "transcript readback",
     } <= set(rec.totals)
     assert rec.totals["evaluate constraints"][1] == 3  # one span per AIR
+    # the host steps around the phases, once a proof
+    for name in ("upload traces", "bind statement", "transcript readback", "query phase"):
+        assert rec.totals[name][1] == 1, name
