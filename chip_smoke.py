@@ -9,8 +9,10 @@ Phases, one line each (plus details):
    in parallel) and the C trace generator (miden_tpu_torch/native);
 2. hold each kernel entry (K1 ntt_col_transform, K2 ntt_transpose_twiddle,
    K3 poseidon2_permute, poseidon2_absorb_rows, poseidon2_compress_rows, the
-   same three entries of R1 RPO-256 and R2 RPX-256, and Q1 constraints_eval,
-   the recorded constraint program of stark/interp.py) against its plain
+   same three entries of R1 RPO-256 and R2 RPX-256, Q1 constraints_eval,
+   the recorded constraint program of stark/interp.py, and D1's
+   deep_ood_sums and deep_reduce_rows, the DEEP step of stark/pcs.py, also
+   on a rank's block at its row offset) against its plain
    torch twin on the card, exact equality, on inputs from a seeded
    generator (Q1: the chiplets and Poseidon2 VM AIRs and an AIR with
    preprocessed columns over 2^12 points, reading row-strided views), and
@@ -131,7 +133,7 @@ Phases, one line each (plus details):
    each shape; a sponge entry over every state of a launch, or over 2^14
    states spread over it where the plain twin would take more than 30 s),
    with its time per proof of each kind; R1 / R2's permute entries, which no
-   proof launches, at n = 2^16. Q1 is held on the proofs' own inputs
+   proof launches, at n = 2^16; D1's bound is its bytes alone. Q1 is held on the proofs' own inputs
    instead (ProgramChecks): at every (AIR, points) shape any proof of the
    script launched it with, right after the first run at that shape, over
    every point (2^14 spread points where the twin would take over 30 s),
@@ -282,7 +284,7 @@ def kernel_table() -> dict:
     """Kernel entry -> (its cuda.Kernel, source, the TPU kernel it replaces)."""
     from miden_tpu_torch.hash import poseidon2, rescue
     from miden_tpu_torch.ntt import ntt
-    from miden_tpu_torch.stark import interp
+    from miden_tpu_torch.stark import interp, pcs
 
     return {
         "ntt_col_transform": (ntt.COL_KERNEL, "miden_tpu_torch/csrc/ntt.cu",
@@ -305,6 +307,10 @@ def kernel_table() -> dict:
         # Q1 runs the recorded constraint program, which miden_tpu runs as an
         # XLA lax.scan (interp.py:273 _run_chunk), with no Pallas kernel
         Q1: (interp.Q1_KERNEL, "miden_tpu_torch/csrc/constraints.cu", "miden_tpu/stark/interp.py:273"),
+        # D1, the DEEP step, which miden_tpu leaves to XLA (pcs.py:205
+        # compute_deep_claims, :253 deep_compose), with no Pallas kernel
+        "deep_ood_sums": (pcs.OOD_KERNEL, "miden_tpu_torch/csrc/deep.cu", "miden_tpu/stark/pcs.py:205"),
+        "deep_reduce_rows": (pcs.ROWS_KERNEL, "miden_tpu_torch/csrc/deep.cu", "miden_tpu/stark/pcs.py:253"),
     }
 
 
@@ -315,12 +321,14 @@ Q1 = "constraints_eval"
 def path_kernels(hash_name: str, program: bool = True) -> list:
     """The kernel entries a proof launches under commitment hash
     ``hash_name``: K1, K2 and K3's permute (the transcript is Poseidon2
-    whatever the hash), the leaf sponge and Merkle layer of the hash, and
-    Q1 where ``program``: some AIR of the proof goes through its recorded
-    constraint program (every VM proof: :func:`routes_program`)."""
+    whatever the hash), the leaf sponge and Merkle layer of the hash, D1's
+    two entries (every opening), and Q1 where ``program``: some AIR of the
+    proof goes through its recorded constraint program (every VM proof:
+    :func:`routes_program`)."""
     leaf = {"poseidon2": "poseidon2", "rpo256": "rpo", "rpx256": "rpx"}[hash_name]
     return ["ntt_col_transform", "ntt_transpose_twiddle", "poseidon2_permute",
-            f"{leaf}_absorb_rows", f"{leaf}_compress_rows"] + ([Q1] if program else [])
+            f"{leaf}_absorb_rows", f"{leaf}_compress_rows", "deep_ood_sums",
+            "deep_reduce_rows"] + ([Q1] if program else [])
 
 
 def routes_program(airs, log_heights) -> bool:
@@ -1741,7 +1749,7 @@ def main() -> int:
 
     # -- 1. build ------------------------------------------------------------
     secs = cuda.build_all()
-    for name in ("ntt", "poseidon2", "rescue", "constraints"):
+    for name in ("ntt", "poseidon2", "rescue", "constraints", "deep"):
         ptxas = [
             ln.strip() for ln in (cuda.BUILD_DIR / f"{name}.log").read_text().splitlines()
             if "registers" in ln or "spill" in ln
@@ -1749,8 +1757,8 @@ def main() -> int:
         log(f"  ptxas {name}: " + " | ".join(ptxas))
     t0 = time.perf_counter()
     native.trace_gen_lib()
-    log_phase(f"phase 1 build: {secs:.3f} s for csrc/ntt.cu, csrc/poseidon2.cu, csrc/rescue.cu and "
-              f"csrc/constraints.cu, "
+    log_phase(f"phase 1 build: {secs:.3f} s for csrc/ntt.cu, csrc/poseidon2.cu, csrc/rescue.cu, "
+              f"csrc/constraints.cu and csrc/deep.cu, "
         f"{time.perf_counter() - t0:.3f} s for native/trace_gen.c ({native.LIBRARY.name})")
 
     global CPU_HALVES
@@ -1768,7 +1776,7 @@ def card_phases(torch, kernels, card: str) -> int:
     from miden_tpu_torch.field import gl
     from miden_tpu_torch.hash import poseidon2, rescue, rescue_host
     from miden_tpu_torch.ntt import ntt
-    from miden_tpu_torch.stark import MIDEN_PARAMS, fused, prove, verify
+    from miden_tpu_torch.stark import MIDEN_PARAMS, fused, pcs, prove, verify
     from miden_tpu_torch.stark.proof_io import proof_to_bytes
     from miden_tpu_torch.transcript.challenger import DuplexChallenger
     from miden_tpu_torch.utils.tracing import Recorder
@@ -1865,6 +1873,23 @@ def card_phases(torch, kernels, card: str) -> int:
             err, checked_points = q1_random_check(torch, rand, air, stride, halo)
             errs[Q1] = max(errs[Q1], err)
             checked[Q1] += 1
+    for log_m, w, log_lift, start in ((4, 7, 1, 0), (16, 51, 0, 0), (12, 130, 3, 1 << 10), (10, 300, 2, 0)):
+        block, zs = rand((1 << log_m, w)), [rand((2,)), rand((2,))]
+        err = max_abs_err(pcs.ood_sums(block, log_m, start, log_lift, zs),
+                          pcs.ood_sums_plain(block, log_m, start, log_lift, zs))
+        errs["deep_ood_sums"] = max(errs["deep_ood_sums"], err)
+        checked["deep_ood_sums"] += 1
+    for rows, start, shapes in ((16, 0, ((16, 5, 8), (4, 3, 8), (16, 0, 0))),
+                                (1 << 14, 1 << 14, ((1 << 14, 51, 56), (1 << 15, 16, 16), (1 << 9, 24, 24)))):
+        mats = [(rand((h, w)), start if h != rows else 0, aw) for h, w, aw in shapes]
+        zs, claims = [rand((2,)), rand((2,))], rand((2, sum(aw for _, _, aw in shapes), 2))
+        alpha, beta = rand((2,)), rand((2,))
+        log_rows = rows.bit_length() - 1
+        pts = pcs.coset_points(log_rows + 1, gl.canonical_lde_shift(log_rows + 1), dev, start, rows)
+        args = (mats, rows, pts, zs, claims, alpha, beta)
+        err = max_abs_err(pcs.deep_rows(*args), pcs.deep_rows_plain(*args))
+        errs["deep_reduce_rows"] = max(errs["deep_reduce_rows"], err)
+        checked["deep_reduce_rows"] += 1
     torch.cuda.synchronize()
     for name, (kern, _, _) in kernels.items():
         log(f"  {name}: {checked[name]} comparisons, {kern.launches} launches, max |diff| {errs[name]}")

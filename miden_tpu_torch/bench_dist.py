@@ -52,9 +52,10 @@ from .stark import MIDEN_PARAMS
 from .utils import cuda
 
 RANKS = 4  # gloo ranks sharing the card in (12d)
-#: the kernels a sharded VM proof launches on each rank (K1, K2, K3 and Q1)
+#: the kernels a sharded VM proof launches on each rank (K1, K2, K3, Q1 and D1)
 RANK_KERNELS = ["ntt_col_transform", "ntt_transpose_twiddle", "poseidon2_absorb_rows",
-                "poseidon2_compress_rows", "poseidon2_permute", "constraints_eval"]
+                "poseidon2_compress_rows", "poseidon2_permute", "constraints_eval", "deep_ood_sums",
+                "deep_reduce_rows"]
 #: points of a block at which Q1 is held to its plain twin (the block's
 #: first and last points, whose next rows come from the halo, and a stride)
 Q1_SAMPLE = 1 << 12

@@ -25,9 +25,11 @@ The A/B
    each hash;
 3. for every kernel both trees have, times the two in turns (earlier, this,
    this, earlier) on the same random inputs at each shape both launched,
-   after checking that they agree; then each tree's kernel time over those
-   proofs (launches x ms per launch, over its own shapes), per kernel and
-   for each permutation's entries together.
+   after checking that they agree, and a kernel one tree alone has (D1,
+   ``csrc/deep.cu``, against a parent without it) at its shapes, after
+   checking it against its plain twin, with its bound; then each tree's kernel time
+   over those proofs (launches x ms per launch, over its own shapes), per
+   kernel and for each permutation's entries together.
 
 Every time is CUDA events over a run of launches, in ms per launch. It needs
 one CUDA device and ``nvcc``.
@@ -88,6 +90,8 @@ KERNELS = {
     # Q1 runs a recorded program on a proof's own inputs: bench_quotient and
     # chip_smoke time it there; it has no random-input case below
     "constraints_eval": ("stark.interp", "Q1_KERNEL"),
+    "deep_ood_sums": ("stark.pcs", "OOD_KERNEL"),
+    "deep_reduce_rows": ("stark.pcs", "ROWS_KERNEL"),
 }
 
 
@@ -149,16 +153,54 @@ def sponges(tree_mod) -> dict:
 HASH_NAMES = {"poseidon2": "poseidon2", "rpo": "rpo256", "rpx": "rpx256"}
 
 
+def deep_case(pcs, rand, name: str, key: tuple) -> dict:
+    """Random inputs for one call of D1's entry ``name`` (through the given
+    ``stark.pcs`` module) at the recorded shape ``key``. Its bound is its
+    bytes alone: each input byte read once (the matrices, points, opening
+    points, claims, alpha and beta) and each output byte written once; its
+    32-bit multiplies are not counted."""
+    if name == "deep_ood_sums":
+        log_m, rows, w, log_lift, start, n_points = key
+        block, zs = rand((rows, w)), [rand((2,)) for _ in range(n_points)]
+        return {
+            "kernel": lambda: pcs.ood_sums(block, log_m, start, log_lift, zs),
+            "plain": lambda: pcs.ood_sums_plain(block, log_m, start, log_lift, zs),
+            "check": lambda: (pcs.ood_sums(block, log_m, start, log_lift, zs),
+                              pcs.ood_sums_plain(block, log_m, start, log_lift, zs)),
+            "elems": rows * w, "bytes": (rows * w + rows + 2 * n_points + 2 * n_points * w) * 8,
+            "ops": 0, "reps": 20 if rows * w > 1 << 16 else 200,
+        }
+    assert name == "deep_reduce_rows", name
+    rows, shapes, n_points = key
+    log_rows = rows.bit_length() - 1
+    mats = [(rand((h, w)), off, aw) for h, w, aw, off in shapes]
+    width = sum(aw for _, _, aw, _ in shapes)
+    zs, claims = [rand((2,)) for _ in range(n_points)], rand((n_points, width, 2))
+    alpha, beta = rand((2,)), rand((2,))
+    pts = pcs.coset_points(log_rows, pcs.gl.canonical_lde_shift(log_rows), "cuda")
+    args = (mats, rows, pts, zs, claims, alpha, beta)
+    elems = sum(h * w for h, w, _, _ in shapes)
+    return {
+        "kernel": lambda: pcs.deep_rows(*args), "plain": lambda: pcs.deep_rows_plain(*args),
+        "check": lambda: (pcs.deep_rows(*args), pcs.deep_rows_plain(*args)),
+        "elems": elems, "bytes": (elems + rows + 2 * n_points * (1 + width) + 4 + 2 * rows) * 8,
+        "ops": 0, "reps": 20 if elems > 1 << 16 else 200,
+    }
+
+
 def bench_case(ntt, sponge_map, rand, name: str, key: tuple) -> dict:
     """Random inputs for one launch of kernel ``name`` at the recorded shape
     ``key``: the kernel call (through the wrappers of the given ``ntt``
-    module and the sponges of :func:`sponges`), its plain twin, and the
-    bytes and 32-bit multiplies the launch needs. An NTT case has ``check``
-    (the kernel's output and the twin's); a sponge entry has ``states``,
+    module and the sponges of :func:`sponges`, or D1's :func:`deep_case`
+    through the ``stark.pcs`` of ``ntt``'s package), its plain twin, and the
+    bytes and 32-bit multiplies the launch needs. An NTT or D1 case has
+    ``check`` (the kernel's output and the twin's); a sponge entry has ``states``,
     ``perms`` (permutations of the launch) and ``at(idx)``: the kernel's
     output at the states ``idx`` (a 1-d index tensor) and the twin's over
     those states alone (each state is independent of the others)."""
     perm, _, entry = name.partition("_")
+    if perm == "deep":
+        return deep_case(importlib.import_module(ntt.__name__.rsplit(".", 2)[0] + ".stark.pcs"), rand, name, key)
     if perm in INT32_MULS_PER_PERM:
         sp = sponge_map[perm]
         ops_per_perm = INT32_MULS_PER_PERM[perm]
@@ -537,6 +579,7 @@ def main(argv=None) -> int:
         return lambda shape: F.to_torch(gen.integers(0, gl.P, size=shape, dtype=np.uint64), "cuda")
 
     mods = {label: (t.mod("ntt.ntt"), sponges(t.mod)) for label, t in trees.items()}
+    mul_rate = int32_mul_rate()
     per_proof = {label: collections.Counter() for label in trees}
     for symbol in KERNELS:
         if symbol == "constraints_eval":
@@ -553,7 +596,13 @@ def main(argv=None) -> int:
                     raise AssertionError(f"{symbol} at {key}: the trees disagree")
                 ms = dict(zip(("parent", "this"), in_turns(old, new, cases["this"]["reps"])))
             else:
+                for label, c in cases.items():
+                    if "check" in c and not torch.equal(*c["check"]()):
+                        raise AssertionError(f"{symbol} at {key}: {label}'s kernel disagrees with its plain twin")
                 ms = {label: time_ms(c["kernel"], c["reps"]) for label, c in cases.items()}
+                for label, c in cases.items():
+                    held = "== plain, " if "check" in c else ""
+                    log(f"  {symbol} {key}: {label} {held}bound {bound_ms(c, mul_rate):.4f} ms")
             for label, t in ms.items():
                 per_proof[label][symbol] += shapes[label][symbol][key] * t
             speedup = f" ({ms['parent'] / ms['this']:.2f}x)" if len(ms) == 2 else ""

@@ -26,12 +26,19 @@ the rest runs whole.
 Every Fiat-Shamir value stays a device tensor threaded from the
 :class:`~miden_tpu_torch.transcript.device_challenger.DeviceChallenger`.
 Extension values are int64 tensors with a trailing dimension of 2.
+
+On CUDA tensors the OOD claims and the DEEP quotient are kernel D1
+(``csrc/deep.cu``: :func:`ood_sums`, one pass over each committed matrix,
+and :func:`deep_rows`, one pass over all of them); on CPU tensors their
+plain twins :func:`ood_sums_plain` and :func:`deep_rows_plain`.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..dist.lmcs_dist import build_tree_sharded
@@ -40,6 +47,7 @@ from ..field import gl
 from ..field import goldilocks as F
 from ..merkle import lmcs
 from ..ntt import ntt
+from ..utils import cuda
 from ..utils.tracing import span
 from .domains import LiftedDomain
 from .params import PcsParams
@@ -81,6 +89,32 @@ def sum_axis1(x: torch.Tensor) -> torch.Tensor:
 # OOD evaluation (barycentric)
 # ---------------------------------------------------------------------------
 
+#: kernel D1 (``csrc/deep.cu``), the DEEP step: the OOD claims of one
+#: committed matrix at both opening points in one pass (:func:`ood_sums`),
+#: and the DEEP quotient over the max LDE domain in one pass over every
+#: committed matrix (:func:`deep_rows`). miden_tpu has no Pallas kernel for
+#: either (its stark/pcs.py leaves them to XLA).
+OOD_KERNEL = cuda.Kernel(
+    "deep", "deep_ood_sums",
+    [cuda.P, cuda.I64, cuda.I32, cuda.I64, cuda.P, cuda.P, cuda.I32, cuda.I32, cuda.I32, cuda.U64,
+     cuda.U64, cuda.I32, cuda.I32, cuda.I32, cuda.I64, cuda.I32, cuda.P, cuda.P, cuda.P, cuda.P],
+    "deep_ood_sums_kernel",
+)
+ROWS_KERNEL = cuda.Kernel(
+    "deep", "deep_reduce_rows",
+    [cuda.P, cuda.I32, cuda.I32, cuda.I32, cuda.P, cuda.P, cuda.I32, cuda.P, cuda.I64, cuda.P, cuda.P,
+     cuda.P, cuda.P],
+    "deep_rows_kernel",
+)
+
+#: opening points D1 takes (the PCS opens at z and z·ω_H)
+MAX_POINTS = 2
+#: D1's OOD tile: at most this many threads a block, weights for this many
+#: rows at a time
+OOD_THREADS, OOD_CHUNK = 256, 1024
+#: committed matrices D1's DEEP rows take (a session proof opens ~30)
+MAX_ROWS_MATS = 64
+
 
 def _bary_weights_dev(log_m: int, shift: int, log_lift: int, z, pts):
     """Barycentric factors for one (height, lift, point): the weight column
@@ -109,6 +143,80 @@ def _weighted_sums_dev(weights, matrix):
     return sums
 
 
+def ood_sums_plain(block, log_m: int, start: int, log_lift: int, zs: list, factors: dict | None = None):
+    """The OOD claims of one committed matrix of height ``2^log_m``, or of
+    its rows ``[start, start + len(block))`` (a rank's block), at each point
+    of ``zs``: ``c_l·Σ_i f(x_i)·x_i/(z_l − x_i)`` per column with ``z_l =
+    z^(2^log_lift)`` and ``c_l = (z_l^m − s^m)/(m·s^m)``. Returns (len(zs),
+    w, 2). Plain torch: the CPU path and D1's twin. ``factors`` keeps the
+    barycentric factors for the next matrix of the same height."""
+    factors = {} if factors is None else factors
+    rows = block.shape[0]
+    shift = gl.canonical_lde_shift(log_m)
+    out = []
+    for j, z in enumerate(zs):
+        key = (j, log_m, start, rows, log_lift)
+        if key not in factors:
+            pts = coset_points(log_m, shift, z.device, start, rows)
+            factors[key] = _bary_weights_dev(log_m, shift, log_lift, z, pts)
+        weights, scale = factors[key]
+        out.append(F.ext_mul(scale, _weighted_sums_dev(weights, block)))
+    return torch.stack(out)
+
+
+def ood_plan(rows: int, w: int, sms: int) -> tuple:
+    """D1's OOD launch over a (rows, w) block on a card of ``sms`` SMs:
+    ``(tc, rl, tiles, rows_per_block, grid_rows)``. The columns are cut into
+    ``tiles`` tiles of at most ``tc`` ≤ 256 (as even as they come), a block
+    holds ``rl`` row lanes of a tile, and each tile's rows are split among
+    about four blocks an SM, in whole chunks of ``OOD_CHUNK`` rows."""
+    tiles = -(-w // OOD_THREADS)
+    tc = -(-w // tiles)
+    rl = max(1, OOD_THREADS // tc)
+    per = -(-rows // max(1, 4 * sms // tiles))
+    per = -(-per // OOD_CHUNK) * OOD_CHUNK
+    return tc, rl, tiles, per, -(-rows // per)
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _row_major(m: torch.Tensor) -> torch.Tensor:
+    """``m`` with unit column stride (its rows may lie apart), as D1 reads it."""
+    if not m.is_cuda or m.dtype != torch.int64 or m.ndim != 2:
+        raise ValueError(f"DEEP matrix: expected a 2-d int64 CUDA tensor, got {m.dtype} {tuple(m.shape)} on {m.device}")
+    return m if m.stride(1) == 1 or m.shape[1] <= 1 else m.contiguous()
+
+
+def _check_points(zs: list) -> None:
+    if not 1 <= len(zs) <= MAX_POINTS:
+        raise ValueError(f"D1 takes 1 to {MAX_POINTS} opening points, got {len(zs)}")
+
+
+def ood_sums(block, log_m: int, start: int, log_lift: int, zs: list) -> torch.Tensor:
+    """:func:`ood_sums_plain` on a CUDA block by D1: one launch, which reads
+    the block once for both points."""
+    _check_points(zs)
+    block = _row_major(block)
+    rows, w = block.shape
+    shift = gl.canonical_lde_shift(log_m)
+    pts = coset_points(log_m, shift, block.device, start, rows)
+    sm = gl.exp_power_of_2(shift % gl.P, log_m)
+    inv_msm = gl.inv(gl.mul((1 << log_m) % gl.P, sm))
+    tc, rl, tiles, per, grid = ood_plan(rows, w, _sm_count(block.device))
+    zmat = torch.stack(zs)
+    part = torch.empty((grid, w, 4), dtype=torch.int64, device=block.device)
+    counters = torch.zeros(tiles, dtype=torch.int64, device=block.device)
+    out = torch.empty((len(zs), w, 2), dtype=torch.int64, device=block.device)
+    OOD_KERNEL.launch(
+        block.data_ptr(), rows, w, block.stride(0), pts.data_ptr(), zmat.data_ptr(), len(zs), log_m, log_lift,
+        sm, inv_msm, tc, rl, tiles, per, grid, part.data_ptr(), counters.data_ptr(), out.data_ptr(),
+        key=(log_m, rows, w, log_lift, start, len(zs)),
+    )
+    return out
+
+
 @dataclass
 class DeepClaims:
     """``evals[point][tree]``: (K_tree, 2) aligned column claims of all the
@@ -118,66 +226,68 @@ class DeepClaims:
     aligned_widths: list
 
 
-def compute_deep_claims(trees: list, zs: list) -> DeepClaims:
-    """Evaluate all committed columns of all trees at each opening point. A
-    matrix of height h in a tree of height H is evaluated at ``z^{H/h}``.
+def _plain_sums():
+    """:func:`ood_sums_plain` sharing the barycentric factors of one height
+    between its calls."""
+    return functools.partial(ood_sums_plain, factors={})
 
-    A row-sharded matrix is summed over this rank's rows (its slice of the
-    coset points); the partial sums of every such matrix and point go
-    through one :func:`~..dist.mesh.sum_partials`, so the claims are one
-    device's exactly (field addition is exact in any order)."""
+
+def _deep_claims(trees: list, zs: list, sums) -> DeepClaims:
     max_h = max(t.height for t in trees)
     mesh = _tree_mesh(trees)
     aligned = [[lmcs.aligned_width(m.shape[1]) for m in t.matrices] for t in trees]
-    terms = []  # per point, per tree: [sums (w, 2), scale, aligned width]
-    partials = []  # the sums of the row-sharded matrices, in order
-    for z in zs:
-        per_tree = []
-        factors: dict = {}  # matrices of one height share the barycentric factors
-        for tree in trees:
-            parts = []
-            for matrix, h in zip(tree.matrices, tree.heights):
-                w = matrix.shape[1]
-                if w == 0:
-                    continue
-                log_m = h.bit_length() - 1
-                sharded = isinstance(matrix, RowShard)
-                if (log_m, sharded) not in factors:
-                    shift = gl.canonical_lde_shift(log_m)
-                    if sharded:
-                        rows = matrix.local.shape[0]
-                        pts = coset_points(log_m, shift, z.device, mesh.rank * rows, rows)
-                    else:
-                        pts = coset_points(log_m, shift, matrix.device)
-                    log_lift = (max_h // h).bit_length() - 1
-                    factors[(log_m, sharded)] = _bary_weights_dev(log_m, shift, log_lift, z, pts)
-                weights, scale = factors[(log_m, sharded)]
-                sums = _weighted_sums_dev(weights, matrix.local if sharded else matrix)
-                if sharded:
-                    partials.append(sums)
-                parts.append([sums, scale, lmcs.aligned_width(w), sharded])
-            per_tree.append(parts)
-        terms.append(per_tree)
+    terms = []  # per tree: [claims (len(zs), w, 2), aligned width, sharded]
+    for tree in trees:
+        parts = []
+        for matrix, h in zip(tree.matrices, tree.heights):
+            w = matrix.shape[1]
+            if w == 0:
+                continue
+            sharded = isinstance(matrix, RowShard)
+            block = matrix.local if sharded else matrix
+            start = mesh.rank * block.shape[0] if sharded else 0
+            log_m, log_lift = h.bit_length() - 1, (max_h // h).bit_length() - 1
+            parts.append([sums(block, log_m, start, log_lift, zs), lmcs.aligned_width(w), sharded])
+        terms.append(parts)
+    partials = [p for parts in terms for p in parts if p[2]]
     if partials:
-        total = sum_partials(torch.cat(partials), mesh)
+        total = sum_partials(torch.cat([p[0] for p in partials], dim=1), mesh)
         off = 0
-        for part in (p for per_tree in terms for parts in per_tree for p in parts if p[3]):
-            w = part[0].shape[0]
-            part[0] = total[off : off + w]
+        for p in partials:
+            w = p[0].shape[1]
+            p[0] = total[:, off : off + w]
             off += w
     out = []
-    for z, per_tree in zip(zs, terms):
+    for j in range(len(zs)):
         cols = []
-        for parts in per_tree:
+        for parts in terms:
             vals = []
-            for sums, scale, aw, _ in parts:
-                v = F.ext_mul(scale, sums)
+            for sums_j, aw, _ in parts:
+                v = sums_j[j]
                 if aw > v.shape[0]:
                     v = torch.nn.functional.pad(v, (0, 0, 0, aw - v.shape[0]))
                 vals.append(v)
-            cols.append(torch.cat(vals) if vals else torch.zeros((0, 2), dtype=torch.int64, device=z.device))
+            cols.append(torch.cat(vals) if vals else torch.zeros((0, 2), dtype=torch.int64, device=zs[j].device))
         out.append(cols)
     return DeepClaims(evals=out, aligned_widths=aligned)
+
+
+def compute_deep_claims(trees: list, zs: list) -> DeepClaims:
+    """Evaluate all committed columns of all trees at each opening point. A
+    matrix of height h in a tree of height H is evaluated at ``z^{H/h}``: by
+    D1 on the card (:func:`ood_sums`), by :func:`ood_sums_plain` on the CPU.
+
+    A row-sharded matrix is summed over this rank's rows (its slice of the
+    coset points); the scaled partial sums of every such matrix and point go
+    through one :func:`~..dist.mesh.sum_partials`, so the claims are one
+    device's exactly (field addition is exact in any order, and the scaling
+    is linear)."""
+    return _deep_claims(trees, zs, ood_sums if zs[0].is_cuda else _plain_sums())
+
+
+def compute_deep_claims_plain(trees: list, zs: list) -> DeepClaims:
+    """:func:`compute_deep_claims` in plain torch on any device: D1's twin."""
+    return _deep_claims(trees, zs, _plain_sums())
 
 
 # ---------------------------------------------------------------------------
@@ -185,23 +295,16 @@ def compute_deep_claims(trees: list, zs: list) -> DeepClaims:
 # ---------------------------------------------------------------------------
 
 
-def deep_compose(domain: LiftedDomain, trees: list, claims: DeepClaims, zs: list, alpha, beta):
-    """DEEP quotient evaluations over the max LDE domain (natural order):
-    ``Q(x) = Σ_j β^j·(f_red(z_j) − f_red(x))/(z_j − x)``. Returns (N, 2);
-    over sharded trees this rank's block of it, as a RowShard (a whole
-    shorter matrix lifted by its rows ``(k·S + j) mod h``)."""
-    device = alpha.device
-    mesh = _tree_mesh(trees)
-    total_w = sum(sum(aws) for aws in claims.aligned_widths)
-    desc = F.ext_powers(alpha, total_w).flip(0)  # position i gets α^{W−1−i}
-
-    f_red_zs = [
-        F.ext_sum_axis0(F.ext_mul(desc, torch.cat(per_tree))) for per_tree in claims.evals
-    ]
-
-    big_n = domain.lde_height
-    rows = big_n if mesh is None else big_n // mesh.size
-    start = 0 if mesh is None else mesh.rank * rows
+def deep_rows_plain(mats: list, rows: int, pts, zs: list, claims, alpha, beta):
+    """The DEEP quotient at the ``rows`` points ``pts`` of the max LDE
+    domain (a rank's block of it over a mesh): ``Q(x) = Σ_j β^j·(f_red(z_j)
+    − f_red(x))/(z_j − x)``, ``f_red = Σ_c α^{W−1−c}·f_c`` over the aligned
+    columns of ``mats`` and over the claims (len(zs), W, 2). ``mats``:
+    ``(matrix, off, aligned width)`` in opening order, the block's row r
+    being the matrix's row ``(off + r) mod h``. Returns (rows, 2). Plain
+    torch: the CPU path and D1's twin."""
+    desc = F.ext_powers(alpha, claims.shape[1]).flip(0)  # position i gets α^{W−1−i}
+    f_red_zs = [F.ext_sum_axis0(F.ext_mul(desc, c)) for c in claims]
 
     def reduce(crow, m):
         return torch.cat([
@@ -209,20 +312,16 @@ def deep_compose(domain: LiftedDomain, trees: list, claims: DeepClaims, zs: list
         ])  # (h, 2)
 
     f_red = None
-    off = 0
-    for tree, aws in zip(trees, claims.aligned_widths):
-        for matrix, aw in zip(tree.matrices, aws):
-            h, w = matrix.shape
-            if w:
-                crow = desc[off : off + w][None]  # (1, w, 2)
-                if mesh is not None and (isinstance(matrix, RowShard) or h >= rows):
-                    part = reduce(crow, block_rows(matrix, big_n, mesh))
-                else:
-                    part = reduce(crow, matrix).repeat(rows // h, 1)
-                f_red = part if f_red is None else F.ext_add(f_red, part)
-            off += aw
+    col = 0
+    for m, off, aw in mats:
+        h, w = m.shape
+        if w:
+            crow = desc[col : col + w][None]  # (1, w, 2)
+            lo = off % h
+            part = reduce(crow, m[lo : lo + rows]) if h >= rows else reduce(crow, m).repeat(rows // h, 1)
+            f_red = part if f_red is None else F.ext_add(f_red, part)
+        col += aw
 
-    pts = coset_points(domain.log_lde_height, domain.lde_shift, device, start, rows)
     bpows = F.ext_powers(beta, len(zs))
     acc = None
     for j, z in enumerate(zs):
@@ -231,7 +330,66 @@ def deep_compose(domain: LiftedDomain, trees: list, claims: DeepClaims, zs: list
         if j > 0:
             term = F.ext_mul(term, bpows[j])
         acc = term if acc is None else F.ext_add(acc, term)
+    return acc
+
+
+def deep_rows(mats: list, rows: int, pts, zs: list, claims, alpha, beta) -> torch.Tensor:
+    """:func:`deep_rows_plain` on CUDA tensors by D1: one launch that reads
+    every matrix once."""
+    _check_points(zs)
+    log_rows = rows.bit_length() - 1
+    assert rows == 1 << log_rows and pts.shape == (rows,), (rows, tuple(pts.shape))
+    table = []
+    for m, off, aw in mats:
+        h, w = m.shape
+        if w:
+            assert h & (h - 1) == 0 and aw - w <= 32, (h, w, aw)
+            m = _row_major(m)
+            table.append((m, [m.data_ptr(), m.stride(0), off, h - 1, w, aw - w]))
+    if len(table) > MAX_ROWS_MATS:
+        raise ValueError(f"D1 takes at most {MAX_ROWS_MATS} committed matrices, got {len(table)}")
+    lift_bits = max([log_rows - (m.shape[0].bit_length() - 1) for m, _ in table] + [0])
+    zmat = torch.stack(zs)
+    for t in (pts, zmat, claims, alpha, beta):
+        cuda.check_tensor(t, "DEEP input")
+    arr = np.array([row for _, row in table] or [[0] * 6], dtype=np.int64)
+    out = torch.empty((rows, 2), dtype=torch.int64, device=alpha.device)
+    ROWS_KERNEL.launch(
+        arr.ctypes.data, len(table), log_rows, lift_bits, pts.data_ptr(), zmat.data_ptr(), len(zs),
+        claims.data_ptr(), claims.shape[1], alpha.data_ptr(), beta.data_ptr(), out.data_ptr(),
+        key=(rows, tuple((m.shape[0], m.shape[1], aw, off) for m, off, aw in mats), len(zs)),
+    )
+    return out
+
+
+def _deep_compose(domain: LiftedDomain, trees: list, claims: DeepClaims, zs: list, alpha, beta, rows_fn):
+    mesh = _tree_mesh(trees)
+    big_n = domain.lde_height
+    rows = big_n if mesh is None else big_n // mesh.size
+    start = 0 if mesh is None else mesh.rank * rows
+    mats = []
+    for tree, aws in zip(trees, claims.aligned_widths):
+        for matrix, aw in zip(tree.matrices, aws):
+            mats.append((matrix.local, 0, aw) if isinstance(matrix, RowShard) else (matrix, start, aw))
+    pts = coset_points(domain.log_lde_height, domain.lde_shift, alpha.device, start, rows)
+    evals = torch.stack([torch.cat(per_tree) for per_tree in claims.evals])  # (len(zs), W, 2)
+    acc = rows_fn(mats, rows, pts, zs, evals, alpha, beta)
     return acc if mesh is None else RowShard(acc, big_n)
+
+
+def deep_compose(domain: LiftedDomain, trees: list, claims: DeepClaims, zs: list, alpha, beta):
+    """DEEP quotient evaluations over the max LDE domain (natural order):
+    ``Q(x) = Σ_j β^j·(f_red(z_j) − f_red(x))/(z_j − x)``, by D1 on the card
+    (:func:`deep_rows`), by :func:`deep_rows_plain` on the CPU. Returns
+    (N, 2); over sharded trees this rank's block of it, as a RowShard (a
+    whole shorter matrix lifted by its rows ``(k·S + j) mod h``)."""
+    return _deep_compose(domain, trees, claims, zs, alpha, beta,
+                         deep_rows if alpha.is_cuda else deep_rows_plain)
+
+
+def deep_compose_plain(domain: LiftedDomain, trees: list, claims: DeepClaims, zs: list, alpha, beta):
+    """:func:`deep_compose` in plain torch on any device: D1's twin."""
+    return _deep_compose(domain, trees, claims, zs, alpha, beta, deep_rows_plain)
 
 
 # ---------------------------------------------------------------------------

@@ -352,3 +352,4 @@ class Kernel:
 P = ctypes.c_void_p
 I32 = ctypes.c_int
 I64 = ctypes.c_longlong
+U64 = ctypes.c_ulonglong
